@@ -1,0 +1,5 @@
+from repro_torch.configs.base import ModelConfig, reduce_config
+from repro_torch.configs.registry import get_config, get_reduced_config
+
+__all__ = ["ModelConfig", "reduce_config", "get_config",
+           "get_reduced_config"]

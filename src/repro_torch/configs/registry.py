@@ -1,0 +1,47 @@
+"""Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
+
+Lists only the archs the port can run.  The other ids of the JAX registry
+raise and name the ROADMAP.md item that ports them.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig, reduce_config
+
+_ARCH_MODULES: Dict[str, str] = {
+    "llama3.1-8b": "llama3_1_8b",
+    "qwen3-4b":    "qwen3_4b",
+}
+
+# archs of the JAX registry that a later slice of the port brings
+_NOT_YET_PORTED: Dict[str, str] = {
+    "mistral-7b":           "ring (sliding-window) KV cache",
+    "deepseek-7b":          "other model families",
+    "qwen2.5-32b":          "other model families",
+    "nemotron-4-15b":       "other model families",
+    "grok-1-314b":          "MoE slice (moe_gemm_fwd)",
+    "deepseek-moe-16b":     "MoE slice (moe_gemm_fwd)",
+    "deepseek-v3-16b":      "MoE slice (moe_gemm_fwd)",
+    "hymba-1.5b":           "other model families",
+    "rwkv6-3b":             "other model families (wkv6_fwd)",
+    "whisper-medium":       "other model families",
+    "llama-3.2-vision-90b": "other model families",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch in _NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to repro_torch yet; see ROADMAP.md "
+            f"§1, '{_NOT_YET_PORTED[arch]}'")
+    if arch not in _ARCH_MODULES:
+        raise KeyError(
+            f"unknown arch {arch!r}; available: {', '.join(_ARCH_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    return mod.CONFIG
+
+
+def get_reduced_config(arch: str) -> ModelConfig:
+    return reduce_config(get_config(arch))

@@ -1,0 +1,176 @@
+"""Decoder-only LM, dense family: forward, prefill into a KV cache, decode.
+
+The torch counterpart of ``repro.models.transformer.DecoderOnlyLM``.  The
+parameter tree keeps the JAX package's layout (``param_specs`` stacks the
+layers along a leading axis in group ``g0``) so that parameters carry over
+path for path; at run time the stack becomes a per-layer list
+(``split_layers``) walked by a Python loop in place of ``lax.scan``.
+
+The KV cache is a full-length bf16 buffer per layer, written in place.
+MoE, hybrid (SSM) and ring-buffer (sliding-window) caches are later slices
+of the port and raise here.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (ParamSpec, apply_norm, init_params,
+                                       norm_spec, pad_vocab, softcap,
+                                       stack_specs, take_embedding)
+from repro_torch.models.mlp import mlp, mlp_specs
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class DecoderOnlyLM:
+    def __init__(self, cfg, *, max_cache_len: int = 0):
+        if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: family {cfg.family!r} is not ported yet; "
+                f"repro_torch runs the dense family (ROADMAP.md §1)")
+        if cfg.pos_embedding == "learned":
+            raise NotImplementedError(f"{cfg.name}: learned positions are "
+                                      f"not ported yet (ROADMAP.md §1)")
+        self.cfg = cfg
+        self.vp = pad_vocab(cfg.vocab_size)
+        self.max_cache_len = max_cache_len or cfg.max_seq_len
+        if cfg.window and self.max_cache_len > cfg.window:
+            raise NotImplementedError(
+                f"{cfg.name}: the sliding-window ring cache is not ported "
+                f"yet (ROADMAP.md §1)")
+        self.dtype = _DTYPES[cfg.compute_dtype]
+
+    # ------------------------------------------------------------- structure
+    def _block_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        return {
+            "ln1": norm_spec(cfg, cfg.d_model),
+            "attn": attn.attn_specs(cfg),
+            "ln2": norm_spec(cfg, cfg.d_model),
+            "ffn": mlp_specs(cfg, cfg.d_ff),
+        }
+
+    def param_specs(self) -> Dict[str, Any]:
+        """The JAX package's spec tree, layers stacked in group ``g0``."""
+        cfg = self.cfg
+        s: Dict[str, Any] = {
+            "embed": ParamSpec((self.vp, cfg.d_model), ("vocab", "embed"),
+                               "embed"),
+            "final_norm": norm_spec(cfg, cfg.d_model),
+        }
+        if not cfg.tie_embeddings:
+            s["lm_head"] = ParamSpec((cfg.d_model, self.vp),
+                                     ("embed", "vocab"))
+        s["g0"] = stack_specs(self._block_specs(), cfg.n_layers)
+        return s
+
+    def split_layers(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """Stacked ``g0`` -> ``layers``: a list of per-layer trees (views)."""
+        def pick(t, i):
+            return ({k: pick(v, i) for k, v in t.items()}
+                    if isinstance(t, dict) else t[i])
+        out = {k: v for k, v in tree.items() if k != "g0"}
+        out["layers"] = [pick(tree["g0"], i)
+                         for i in range(self.cfg.n_layers)]
+        return out
+
+    def init_params(self, generator: torch.Generator, device) -> Dict[str, Any]:
+        """Random parameters on ``device`` from ``generator``, split by layer."""
+        return self.split_layers(init_params(
+            self.param_specs(), generator, dtype=self.dtype, device=device))
+
+    # ----------------------------------------------------------------- block
+    def _ffn(self, lp, x):
+        return x + mlp(self.cfg, lp["ffn"], apply_norm(self.cfg, lp["ln2"], x))
+
+    def _embed(self, params, tokens):
+        return take_embedding(params["embed"], tokens).to(self.dtype)
+
+    def _logits(self, params, x):
+        cfg = self.cfg
+        x = apply_norm(cfg, params["final_norm"], x)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = softcap(x @ head, cfg.logit_softcap)
+        if self.vp != cfg.vocab_size:                 # mask padded vocab rows
+            pad = torch.arange(self.vp, device=x.device) >= cfg.vocab_size
+            logits = logits.masked_fill(pad, -1e30)
+        return logits
+
+    # --------------------------------------------------------------- forward
+    def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced logits (B, S, V) and the (zero) aux loss."""
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        x = self._embed(params, tokens)
+        for lp in params["layers"]:
+            h = apply_norm(self.cfg, lp["ln1"], x)
+            x = self._ffn(lp, x + attn.attention(
+                self.cfg, lp["attn"], h, positions, causal=True,
+                window_eff=self.cfg.window))
+        return self._logits(params, x), torch.zeros((), device=x.device)
+
+    # ---------------------------------------------------------------- decode
+    def init_cache(self, batch: int, device,
+                   dtype=torch.bfloat16) -> Dict[str, Any]:
+        cfg = self.cfg
+        shape = (batch, self.max_cache_len, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "k": [torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(cfg.n_layers)],
+            "v": [torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(cfg.n_layers)],
+            "pos": 0,
+        }
+
+    def prefill(self, params, batch, cache=None):
+        """Forward + cache population.  tokens: (B, S).  Returns the last
+        position's logits (B, 1, V) and the cache."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        if cache is None:
+            cache = self.init_cache(B, tokens.device)
+        W = self.max_cache_len
+        # slot s holds the latest position p == s (mod W), as in the JAX
+        # package; with S < W the prompt fills the first S slots
+        slots = (torch.tensor([S - 1 - ((S - 1 - s) % W) for s in range(W)],
+                              device=tokens.device) if S >= W else None)
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        x = self._embed(params, tokens)
+        for i, lp in enumerate(params["layers"]):
+            h = apply_norm(cfg, lp["ln1"], x)
+            q = attn.project_q(cfg, lp["attn"], h, positions)
+            k, v = attn.project_kv(cfg, lp["attn"], h, positions)
+            a = attn.sdpa_auto(q, k, v, causal=True, window_eff=cfg.window)
+            x = x + a.reshape(B, S, cfg.q_dim) @ lp["attn"]["wo"]
+            for name, t in (("k", k), ("v", v)):
+                c = cache[name][i]
+                if slots is None:
+                    c[:, :S] = t.to(c.dtype)
+                else:
+                    c.copy_(t[:, slots])
+            x = self._ffn(lp, x)
+        cache["pos"] = S
+        return self._logits(params, x[:, -1:]), cache
+
+    def decode_step(self, params, tokens, cache):
+        """tokens: (B, 1).  Returns (logits (B,1,V), cache), the cache
+        updated in place."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        if pos >= self.max_cache_len:
+            raise ValueError(f"decode position {pos} is past the cache "
+                             f"window {self.max_cache_len}")
+        x = self._embed(params, tokens)
+        for i, lp in enumerate(params["layers"]):
+            h = apply_norm(cfg, lp["ln1"], x)
+            a, _, _ = attn.decode_attention(cfg, lp["attn"], h, pos,
+                                            cache["k"][i], cache["v"][i])
+            x = self._ffn(lp, x + a)
+        cache["pos"] = pos + 1
+        return self._logits(params, x), cache
+

@@ -1,0 +1,116 @@
+"""The port's CUDA kernels against their plain versions, on a card.
+
+Every test here needs a CUDA card (``cuda`` marker) and skips without one;
+the file imports no JAX, so it runs on a machine that has none:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: fp32 2e-5, bf16 2e-2 (the JAX package's kernel tolerances).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_reduced_config
+from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.models import build_model
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+CASES = {
+    "causal": dict(causal=True),
+    "window32": dict(causal=True, window=32),
+    "noncausal": dict(causal=False),
+    "mask": dict(causal=False, mask=True),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    return torch.device("cuda")
+
+
+def _close(a, b, tol):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(a.float().cpu().numpy(),
+                               b.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 64, 200])
+def test_flash_kernel_matches_plain(cuda, S, dtype, case, D):
+    kw = CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, S, h, D, generator=g, device=cuda).to(dtype)
+               for h in (4, 2, 2))
+    mask = None
+    if kw.get("mask"):
+        mask = torch.rand(S, S, generator=g, device=cuda) < 0.7
+        mask |= torch.eye(S, dtype=torch.bool, device=cuda)
+    args = dict(causal=kw["causal"], window=kw.get("window", 0))
+    _close(flash_attention_fwd(q, k, v, mask, **args),
+           flash_attention_ref(q, k, v, mask, **args), TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_inputs_and_offsets(cuda):
+    """q/k/v as views of one packed projection, queries at an offset."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(2, 96, 8 + 2 + 2, 64, generator=g, device=cuda)
+    q, k, v = qkv[:, 32:, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    args = dict(causal=True, window=24, q_offset=32)
+    _close(flash_attention_fwd(q, k, v, **args),
+           flash_attention_ref(q, k, v, **args), TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 128), (2, 100, 256), (3, 4096),
+                                   (5, 2560), (2, 3, 1500)])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, wdtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, r = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    w = torch.randn(shape[-1], generator=g, device=cuda).to(wdtype)
+    _close(rmsnorm_fwd(x, w), rmsnorm_ref(x, w), TOL[dtype])
+    y, res = rmsnorm_fwd(x, w, r)
+    y_ref, res_ref = rmsnorm_ref(x, w, r)
+    _close(y, y_ref, TOL[dtype])
+    _close(res, res_ref, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.1-8b", "qwen3-4b"])
+def test_reduced_model_on_card_matches_cpu(cuda, arch):
+    """fp32 prefill + decode logits through the kernels equal the CPU's
+    plain path on the same parameters (2e-4: fp32 sums in another order
+    through 4 layers, and bf16 cache values that may round apart)."""
+    cfg = get_reduced_config(arch).replace(compute_dtype="float32")
+    model = build_model(cfg, max_cache_len=40)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    on_card = {k: v for k, v in params.items() if k != "layers"}
+    on_card = {k: ({n: t.to(cuda) for n, t in v.items()}
+                   if isinstance(v, dict) else v.to(cuda))
+               for k, v in on_card.items()}
+    on_card["layers"] = [
+        {blk: {n: t.to(cuda) for n, t in p.items()} for blk, p in lp.items()}
+        for lp in params["layers"]]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        lc, cc = model.prefill(params, {"tokens": tokens})
+        lg, cg = model.prefill(on_card, {"tokens": tokens.to(cuda)})
+        _close(lg, lc, 2e-4)
+        tok = tokens[:, -1:]
+        for _ in range(4):
+            lc, cc = model.decode_step(params, tok, cc)
+            lg, cg = model.decode_step(on_card, tok.to(cuda), cg)
+            _close(lg, lc, 2e-3)

@@ -1,0 +1,61 @@
+"""Rules of the PyTorch port: it stands alone and runs where it is asked.
+
+``src/repro_torch`` and ``chip_smoke.py`` run on a machine with no JAX, so
+they import neither ``jax`` nor anything of the JAX package ``repro`` (not
+even its stdlib-only modules); and the entry point runs on CUDA unless told
+otherwise, raising where there is none.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.launch import serve
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax_and_no_repro(path):
+    assert path.exists()
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert bad == [], f"{path.name} imports {bad}"
+
+
+def test_rule_catches_forbidden_imports(tmp_path):
+    f = tmp_path / "bad.py"
+    f.write_text("import jax.numpy as jnp\nfrom repro.core import x\n"
+                 "from repro_torch.models import build_model\n")
+    assert [m for m in _imported_modules(f) if _forbidden(m)] == \
+        ["jax.numpy", "repro.core"]
+
+
+def test_serve_entry_point_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available; the check needs a host without it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "qwen3-4b", "--reduced", "--new-tokens", "2"])
+
+
+def test_serve_entry_point_runs_on_cpu_when_asked(capsys):
+    assert serve.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "8",
+                       "--new-tokens", "3"]) == 0
+    assert "generated (2, 3) tokens" in capsys.readouterr().out
