@@ -8,12 +8,14 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 2. each kernel against its plain PyTorch version on the card, at the shapes
    serving gives it and at small edge cases, with the kernel's, the plain
    version's and one library call's time (CUDA events, L2 flushed);
-3. full-width, full-depth llama3.1-8b (random bf16 weights from --seed)
-   served through ``ServingLoop``: batch 4, prompt 512, 32 greedy tokens,
-   with every kernel's launch count read over that run alone, then timed
-   (host clock) and profiled (device time by kernel, busy share);
-4. the kernel path against the plain path on the same prefill at full
-   width, cut to 2 layers;
+3. full-width, full-depth llama3.1-8b, then deepseek-v3-16b (MoE; random
+   bf16 weights from --seed), each served through ``ServingLoop``: batch 4,
+   prompt 512, 32 greedy tokens, with every kernel's launch count read over
+   that run alone, then timed (host clock) and profiled (device time by
+   kernel, busy share);
+4. the kernel path against the plain path at full width: a 2-layer llama
+   prefill; deepseek's MoE block alone on one bf16 input; a 2-layer (one
+   dense, one MoE) deepseek prefill;
 5. the JSON line of the kernels, then the JSON line of the device.
 
 It needs ``src/repro_torch`` beside it, and CUDA; without either it exits
@@ -41,10 +43,14 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm import ops as moe_ops  # noqa: E402
+from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd  # noqa: E402
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.serve.decode import ServeConfig, ServingLoop  # noqa: E402
 
 # H100 SXM data sheet (dense, 700 W): the card's least time for a function
@@ -56,7 +62,18 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # on a rounding boundary move one bf16 step (2**-8 relative), and such flips
 # compound through 2 layers; the logits are of unit scale
 E2E_TOL = {"max_abs": 0.25, "mean_abs": 0.02}
-KERNELS = [fa_ops.flash_attention_fwd, rms_ops.rmsnorm_fwd]
+# kernel path vs plain path, deepseek's MoE block alone on one bf16 input:
+# the router sees the same bits, so only the expert GEMMs' summation order
+# differs; each output is a bf16 rounding of order-1 sums (one step 2**-8
+# relative), and a flipped rounding of h moves y by far less than a step, so
+# allow a few steps, compounded through 3 GEMMs, SiLU, gates and the sum
+MOE_BLOCK_TOL = {"max_abs": 2 ** -5, "mean_abs": 1e-3}
+# 2-layer deepseek prefill: layer 0's differences (a bf16 step here and
+# there) can reorder a near-tied 6th/7th router score in layer 1, so some
+# tokens take another expert set; that cannot happen to most tokens
+MAX_FLIPPED_SHARE = 0.5
+KERNELS = [fa_ops.flash_attention_fwd, rms_ops.rmsnorm_fwd,
+           moe_ops.moe_gemm_fwd]
 
 
 def log(msg: str) -> None:
@@ -106,16 +123,33 @@ def check(name: str, err: float, tol: float) -> None:
         raise AssertionError(f"{name}: error {err} above tolerance {tol}")
 
 
+def check_close(name: str, a, b, atol: float, rtol: float) -> float:
+    """|a - b| <= atol + rtol |b| everywhere; returns the max abs error."""
+    diff = (a.float() - b.float()).abs()
+    excess = float((diff - atol - rtol * b.float().abs()).max())
+    err = float(diff.max())
+    log(f"  {name}: max_abs_err {err:.3e} (atol {atol:.3g}, rtol {rtol:g}) "
+        f"{'ok' if excess <= 0 else 'FAILED'}")
+    if excess > 0:
+        raise AssertionError(f"{name}: error above atol {atol} + rtol {rtol}")
+    return err
+
+
 # --------------------------------------------------------------------------- #
 # Phase 1: card and build
 # --------------------------------------------------------------------------- #
+CARD = ""          # "name, power limit" as nvidia-smi gives them
+
+
 def card() -> None:
+    global CARD
     for query in ("name,power.limit",
                   "name,power.limit,clocks.sm,temperature.gpu,power.draw"):
         out = subprocess.run(
             ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
             check=True, capture_output=True, text=True).stdout.strip()
         log(out.splitlines()[0])
+        CARD = CARD or out.splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -123,7 +157,7 @@ def card() -> None:
 def build() -> None:
     t0 = time.perf_counter()
     _build.build_all()
-    for name in ("flash_attention", "rmsnorm"):
+    for name in ("flash_attention", "rmsnorm", "moe_gemm"):
         _build.library(name)
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     for entry in _build.build_log:
@@ -257,11 +291,70 @@ def rmsnorm_checks(g) -> dict:
                 bound_by=b_by, library_ms=lib_ms)
 
 
+def moe_gemm_checks(g) -> dict:
+    dev = "cuda"
+    log("moe_gemm (kernel vs plain):")
+    cases = [  # (E, C, d, h, dtype): ragged C, d, h; E = 1; C = 8
+        (4, 64, 96, 200, torch.float32),
+        (3, 37, 100, 45, torch.float32),
+        (3, 37, 100, 45, torch.bfloat16),       # element-wise loads
+        (2, 130, 72, 136, torch.bfloat16),      # two 128-row C-tiles
+        (2, 240, 40, 24, torch.bfloat16),
+        (1, 8, 2048, 1408, torch.bfloat16),     # E 1, C 8
+        (8, 8, 16, 16, torch.float32),
+        (64, 8, 1408, 2048, torch.bfloat16),    # decode, the wd form
+        (64, 240, 1408, 2048, torch.bfloat16),  # prefill, the wd form
+    ]
+    for E, C, d, h, dt in cases:
+        x = torch.randn(E, C, d, generator=g, device=dev).to(dt)
+        w = torch.randn(E, d, h, generator=g, device=dev).to(dt)
+        check_close(f"E{E} C{C} d{d} h{h} {str(dt)[6:]}", moe_gemm_fwd(x, w),
+                    moe_gemm_ref(x, w), TOL[dt] * d ** 0.5, TOL[dt])
+
+    # the serving shapes of wg / wu: prefill C 240 (T 2048), decode C 8 (T 4)
+    row = None
+    for what, C in (("prefill", 240), ("decode", 8)):
+        E, d, h, dt = 64, 2048, 1408, torch.bfloat16
+        x = torch.randn(E, C, d, generator=g, device=dev).to(dt)
+        w = torch.randn(E, d, h, generator=g, device=dev).to(dt)
+        err = check_close(f"{what} shape ({E},{C},{d})x({E},{d},{h}) bf16",
+                          moe_gemm_fwd(x, w), moe_gemm_ref(x, w),
+                          TOL[dt] * d ** 0.5, TOL[dt])
+        ms = cuda_ms(lambda: moe_gemm_fwd(x, w))
+        plain_ms = cuda_ms(lambda: moe_gemm_ref(x, w), iters=5)
+        lib_ms = cuda_ms(lambda: torch.bmm(x, w))
+        nbytes = 2 * (x.numel() + w.numel() + E * C * h)
+        flops = 2 * E * C * d * h
+        b_ms, b_by = bound(nbytes, flops, dt)
+        log(f"  {what} shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.bmm {lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {CARD}")
+        if row is None:
+            row = dict(name="moe_gemm", route="cuda",
+                       source="src/repro_torch/kernels/csrc/moe_gemm.cu",
+                       replaces="src/repro/kernels/moe_gemm/kernel.py:47",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        else:
+            row.update(decode_ms=ms, decode_plain_ms=plain_ms,
+                       decode_bound_ms=b_ms, decode_library_ms=lib_ms)
+    return row
+
+
 # --------------------------------------------------------------------------- #
-# Phase 3: serve llama3.1-8b
+# Phase 3: serve llama3.1-8b and deepseek-v3-16b
 # --------------------------------------------------------------------------- #
-def serve(args) -> tuple:
-    cfg = get_config("llama3.1-8b")
+def expected_launches(cfg, new_tokens: int) -> dict:
+    """Launches of each kernel in one served run: prefill + new_tokens - 1
+    decode steps, new_tokens forwards in all."""
+    n_moe = (cfg.n_layers - cfg.moe.first_k_dense) if cfg.moe else 0
+    return {"flash_attention_fwd": cfg.n_layers,         # prefill only
+            "rmsnorm_fwd": (2 * cfg.n_layers + 1) * new_tokens,
+            "moe_gemm_fwd": 3 * n_moe * new_tokens}
+
+
+def serve(args, arch: str) -> dict:
+    cfg = get_config(arch)
     model = build_model(cfg, max_cache_len=args.prompt_len + args.new_tokens)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -269,10 +362,14 @@ def serve(args) -> tuple:
     params = model.init_params(gen, "cuda")
     torch.cuda.synchronize()
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    log(f"llama3.1-8b: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+    moe = (f"; MoE: {cfg.moe.n_experts} experts of {cfg.moe.d_expert}, "
+           f"top-{cfg.moe.top_k} {cfg.moe.router}, {cfg.moe.n_shared} shared, "
+           f"{cfg.moe.first_k_dense} dense layer(s) of {cfg.moe.d_ff_dense}"
+           if cfg.moe else "")
+    log(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
         f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}; weights {n_bytes / 1e9:.2f} GB made on the card "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"{cfg.vocab_size}{moe}; weights {n_bytes / 1e9:.2f} GB made on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     loop = ServingLoop(model, params, args.batch, args.prompt_len,
@@ -296,10 +393,7 @@ def serve(args) -> tuple:
             or out.max() >= cfg.vocab_size:
         raise AssertionError(f"bad tokens: shape {out.shape}, range "
                              f"[{out.min()}, {out.max()}]")
-    per_forward = {"flash_attention_fwd": cfg.n_layers,
-                   "rmsnorm_fwd": 2 * cfg.n_layers + 1}
-    for name, n in per_forward.items():
-        want = n if name == "flash_attention_fwd" else n * args.new_tokens
+    for name, want in expected_launches(cfg, args.new_tokens).items():
         if launches[name] != want:
             raise AssertionError(f"{name}: {launches[name]} launches, "
                                  f"expected {want}")
@@ -326,15 +420,15 @@ def serve(args) -> tuple:
         if not torch.isfinite(logits[..., :cfg.vocab_size]).all():
             raise AssertionError("non-finite decode logits")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"prefill {prefill_ms:.2f} ms (B {args.batch} x S {args.prompt_len}); "
-        f"decode {decode_ms:.2f} ms/token step = "
+    log(f"{arch}: prefill {prefill_ms:.2f} ms (B {args.batch} x S "
+        f"{args.prompt_len}); decode {decode_ms:.2f} ms/token step = "
         f"{args.batch * 1e3 / decode_ms:.1f} tokens/s; served "
         f"{args.batch * args.new_tokens / wall:.1f} tokens/s end to end; "
-        f"peak memory {peak:.2f} GB")
+        f"peak memory {peak:.2f} GB; {CARD}")
     with torch.inference_mode():
-        device_profile("prefill", prefill_ms,
+        device_profile(f"{arch} prefill", prefill_ms,
                        lambda: model.prefill(params, {"tokens": tokens}))
-        device_profile("decode step", decode_ms,
+        device_profile(f"{arch} decode step", decode_ms,
                        lambda: model.decode_step(params, tok, cache))
     del params, cache, loop
     torch.cuda.empty_cache()
@@ -356,7 +450,8 @@ def device_profile(what: str, step_ms: float, fn, top: int = 6) -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(r[0] for r in rows)
     log(f"{what} profile: device busy {busy:.2f} ms of {step_ms:.2f} ms "
-        f"({100 * busy / step_ms:.1f}%, idle {100 - 100 * busy / step_ms:.1f}%)")
+        f"({100 * busy / step_ms:.1f}%, idle {100 - 100 * busy / step_ms:.1f}%)"
+        f" in {sum(r[1] for r in rows)} kernel launches; {CARD}")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         log(f"  {ms:8.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  x{count:<4d} "
             f"{key[:90]}")
@@ -381,8 +476,24 @@ def plain_path():
     """Route the ops of a CUDA run through the plain versions."""
     with mock.patch.object(fa_ops, "flash_attention_fwd",
                            flash_attention_ref), \
-            mock.patch.object(rms_ops, "rmsnorm_fwd", rmsnorm_ref):
+            mock.patch.object(rms_ops, "rmsnorm_fwd", rmsnorm_ref), \
+            mock.patch.object(moe_ops, "moe_gemm_fwd", moe_gemm_ref):
         yield
+
+
+@contextmanager
+def recorded_routes():
+    """Collect the expert indices (T, k) of every routing call."""
+    routes = []
+    route = moe_mod._route
+
+    def recording(cfg, logits):
+        gates, idx, aux = route(cfg, logits)
+        routes.append(idx.sort(-1).values)
+        return gates, idx, aux
+
+    with mock.patch.object(moe_mod, "_route", recording):
+        yield routes
 
 
 def kernel_vs_plain(args) -> None:
@@ -409,6 +520,62 @@ def kernel_vs_plain(args) -> None:
         raise AssertionError("kernel path and plain path disagree")
 
 
+def moe_kernel_vs_plain(args) -> None:
+    """deepseek-v3-16b at full width: (a) the MoE block alone on one bf16
+    input, (b) a 2-layer (dense + MoE) prefill."""
+    cfg = get_config("deepseek-v3-16b").replace(n_layers=2)
+    model = build_model(cfg, max_cache_len=args.prompt_len)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = model.init_params(gen, "cuda")
+
+    # (a) the block alone: the router sees identical bits on both paths
+    x = torch.randn(args.batch, args.prompt_len, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    p = params["layers"][1]["ffn"]
+    with torch.inference_mode(), recorded_routes() as routes:
+        ok, _ = moe_mod.moe_forward(cfg, p, x)
+        with plain_path():
+            op, _ = moe_mod.moe_forward(cfg, p, x)
+    diff = (ok.float() - op.float()).abs()
+    same_route = torch.equal(routes[0], routes[1])
+    log(f"MoE block alone (B {args.batch}, S {args.prompt_len}, bf16), kernel "
+        f"vs plain path: max_abs {float(diff.max()):.3e} mean_abs "
+        f"{float(diff.mean()):.3e} (tol {MOE_BLOCK_TOL}), output std "
+        f"{float(op.float().std()):.3f}; identical routing: {same_route}")
+    if not same_route or float(diff.max()) > MOE_BLOCK_TOL["max_abs"] or \
+            float(diff.mean()) > MOE_BLOCK_TOL["mean_abs"]:
+        raise AssertionError("MoE block: kernel path and plain path disagree")
+
+    # (b) 2-layer prefill: compare the rows whose last token kept its experts
+    tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))).long().cuda()
+    with torch.inference_mode(), recorded_routes() as routes:
+        lk, _ = model.prefill(params, {"tokens": tokens})
+        with plain_path():
+            lp, _ = model.prefill(params, {"tokens": tokens})
+    flipped = (routes[0] != routes[1]).any(-1).view(args.batch,
+                                                    args.prompt_len)
+    share = float(flipped.float().mean())
+    rows = ~flipped[:, -1]
+    if int(rows.sum()) < max(args.batch // 2, 1):
+        raise AssertionError(f"2-layer MoE prefill: the last token of "
+                             f"{int((~rows).sum())} of {args.batch} rows took "
+                             f"another expert set")
+    V = cfg.vocab_size
+    diff = (lk[rows, :, :V].float() - lp[rows, :, :V].float()).abs()
+    log(f"2-layer full-width deepseek-v3-16b prefill, kernel vs plain path: "
+        f"{int(flipped.sum())} of {flipped.numel()} tokens ({100 * share:.2f}%,"
+        f" limit {100 * MAX_FLIPPED_SHARE:.0f}%) took another layer-1 expert "
+        f"set; {int(rows.sum())} of {args.batch} rows kept the last token's "
+        f"experts, their logits max_abs {float(diff.max()):.3e} mean_abs "
+        f"{float(diff.mean()):.3e} (tol {E2E_TOL}), logit std "
+        f"{float(lp[..., :V].float().std()):.3f}")
+    if share > MAX_FLIPPED_SHARE or float(diff.max()) > E2E_TOL["max_abs"] or \
+            float(diff.mean()) > E2E_TOL["mean_abs"]:
+        raise AssertionError("2-layer MoE prefill: kernel path and plain "
+                             "path disagree")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -425,11 +592,15 @@ def main(argv=None) -> int:
     card()
     build()
     g = torch.Generator(device="cuda").manual_seed(args.seed)
-    rows = [flash_checks(g), rmsnorm_checks(g)]
-    launches = serve(args)
+    rows = [flash_checks(g), rmsnorm_checks(g), moe_gemm_checks(g)]
+    by_run = {"llama3.1-8b": serve(args, "llama3.1-8b")}
     kernel_vs_plain(args)
+    by_run["deepseek-v3-16b"] = serve(args, "deepseek-v3-16b")
+    moe_kernel_vs_plain(args)
     for row, fn in zip(rows, KERNELS):
-        row["launches"] = launches[fn.__name__]
+        counts = {arch: n[fn.__name__] for arch, n in by_run.items()}
+        row["launches"] = sum(counts.values())
+        row["launches_by_run"] = counts
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

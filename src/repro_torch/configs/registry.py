@@ -11,8 +11,10 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig, reduce_config
 
 _ARCH_MODULES: Dict[str, str] = {
-    "llama3.1-8b": "llama3_1_8b",
-    "qwen3-4b":    "qwen3_4b",
+    "llama3.1-8b":      "llama3_1_8b",
+    "qwen3-4b":         "qwen3_4b",
+    "deepseek-v3-16b":  "deepseek_v3_16b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
 }
 
 # archs of the JAX registry that a later slice of the port brings
@@ -21,9 +23,7 @@ _NOT_YET_PORTED: Dict[str, str] = {
     "deepseek-7b":          "other model families",
     "qwen2.5-32b":          "other model families",
     "nemotron-4-15b":       "other model families",
-    "grok-1-314b":          "MoE slice (moe_gemm_fwd)",
-    "deepseek-moe-16b":     "MoE slice (moe_gemm_fwd)",
-    "deepseek-v3-16b":      "MoE slice (moe_gemm_fwd)",
+    "grok-1-314b":          "314 B params: needs the multi-card FSDP slice",
     "hymba-1.5b":           "other model families",
     "rwkv6-3b":             "other model families (wkv6_fwd)",
     "whisper-medium":       "other model families",

@@ -7,7 +7,9 @@ package builds, so that its parameters carry over path for path;
 
 Matrices are held in the compute dtype: casting once at load
 equals the JAX code's per-use ``.astype(x.dtype)``.  Vectors (norm weights,
-biases) stay float32 and are cast where the JAX code casts them.
+biases) stay float32 and are cast where the JAX code casts them.  The MoE
+router (the matrix whose output axis is ``experts``) stays float32 too: the
+JAX code computes its logits in fp32 from fp32 parameters.
 """
 from __future__ import annotations
 
@@ -44,10 +46,13 @@ def tree_map_specs(fn: Callable[[Tuple[str, ...], ParamSpec], Any], tree,
 
 
 def load_dtype(spec: ParamSpec, compute_dtype: torch.dtype) -> torch.dtype:
-    """Matrices in the compute dtype, vectors (norms, biases) in float32; a
-    stacked 'layers' axis does not count toward the rank."""
+    """Matrices in the compute dtype; vectors (norms, biases) and the MoE
+    router in float32.  A stacked 'layers' axis does not count toward the
+    rank."""
     rank = len(spec.shape) - (spec.axes[:1] == ("layers",))
-    return compute_dtype if rank >= 2 else torch.float32
+    if rank < 2 or spec.axes[-1:] == ("experts",):
+        return torch.float32
+    return compute_dtype
 
 
 def init_params(spec_tree, generator: torch.Generator, *,

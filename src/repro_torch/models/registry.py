@@ -4,7 +4,7 @@ from __future__ import annotations
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import DecoderOnlyLM
 
-_FAMILIES = {"dense": DecoderOnlyLM}
+_FAMILIES = {"dense": DecoderOnlyLM, "moe": DecoderOnlyLM}
 
 
 def build_model(cfg: ModelConfig, *, max_cache_len: int = 0):

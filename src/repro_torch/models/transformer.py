@@ -1,18 +1,21 @@
-"""Decoder-only LM, dense family: forward, prefill into a KV cache, decode.
+"""Decoder-only LM, dense and MoE families: forward, prefill into a KV
+cache, decode.
 
 The torch counterpart of ``repro.models.transformer.DecoderOnlyLM``.  The
 parameter tree keeps the JAX package's layout (``param_specs`` stacks the
-layers along a leading axis in group ``g0``) so that parameters carry over
-path for path; at run time the stack becomes a per-layer list
-(``split_layers``) walked by a Python loop in place of ``lax.scan``.
+layers of one structure along a leading axis, one group ``g<i>`` per entry
+of ``layer_groups``: deepseek's first dense layer in ``g0``, its MoE layers
+in ``g1``) so that parameters carry over path for path; at run time the
+groups become one per-layer list (``split_layers``) walked by a Python loop
+in place of ``lax.scan``.
 
 The KV cache is a full-length bf16 buffer per layer, written in place.
-MoE, hybrid (SSM) and ring-buffer (sliding-window) caches are later slices
-of the port and raise here.
+Hybrid (SSM) layers and ring-buffer (sliding-window) caches are later
+slices of the port and raise here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -20,17 +23,19 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (ParamSpec, apply_norm, init_params,
                                        norm_spec, pad_vocab, softcap,
                                        stack_specs, take_embedding)
-from repro_torch.models.mlp import mlp, mlp_specs
+from repro_torch.models.mlp import mlp
+from repro_torch.models.moe import moe_forward, moe_or_mlp_specs
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class DecoderOnlyLM:
     def __init__(self, cfg, *, max_cache_len: int = 0):
-        if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
+        if cfg.family not in ("dense", "moe") or cfg.ssm is not None:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet; "
-                f"repro_torch runs the dense family (ROADMAP.md §1)")
+                f"repro_torch runs the dense and MoE families "
+                f"(ROADMAP.md §1)")
         if cfg.pos_embedding == "learned":
             raise NotImplementedError(f"{cfg.name}: learned positions are "
                                       f"not ported yet (ROADMAP.md §1)")
@@ -42,19 +47,30 @@ class DecoderOnlyLM:
                 f"{cfg.name}: the sliding-window ring cache is not ported "
                 f"yet (ROADMAP.md §1)")
         self.dtype = _DTYPES[cfg.compute_dtype]
+        # per layer: does it run a dense MLP (else the MoE block)
+        self.dense_layers = [dense for n, dense in self.layer_groups()
+                             for _ in range(n)]
 
     # ------------------------------------------------------------- structure
-    def _block_specs(self) -> Dict[str, Any]:
+    def layer_groups(self) -> List[Tuple[int, bool]]:
+        """[(n_layers, is_dense_mlp)] group split (moe first_k_dense)."""
+        cfg = self.cfg
+        if cfg.moe is not None and cfg.moe.first_k_dense:
+            k = cfg.moe.first_k_dense
+            return [(k, True), (cfg.n_layers - k, False)]
+        return [(cfg.n_layers, cfg.moe is None)]
+
+    def _block_specs(self, dense_mlp: bool) -> Dict[str, Any]:
         cfg = self.cfg
         return {
             "ln1": norm_spec(cfg, cfg.d_model),
             "attn": attn.attn_specs(cfg),
             "ln2": norm_spec(cfg, cfg.d_model),
-            "ffn": mlp_specs(cfg, cfg.d_ff),
+            "ffn": moe_or_mlp_specs(cfg, dense_mlp),
         }
 
     def param_specs(self) -> Dict[str, Any]:
-        """The JAX package's spec tree, layers stacked in group ``g0``."""
+        """The JAX package's spec tree, layers stacked per group ``g<i>``."""
         cfg = self.cfg
         s: Dict[str, Any] = {
             "embed": ParamSpec((self.vp, cfg.d_model), ("vocab", "embed"),
@@ -64,17 +80,21 @@ class DecoderOnlyLM:
         if not cfg.tie_embeddings:
             s["lm_head"] = ParamSpec((cfg.d_model, self.vp),
                                      ("embed", "vocab"))
-        s["g0"] = stack_specs(self._block_specs(), cfg.n_layers)
+        for gi, (n, dense) in enumerate(self.layer_groups()):
+            s[f"g{gi}"] = stack_specs(self._block_specs(dense), n)
         return s
 
     def split_layers(self, tree: Dict[str, Any]) -> Dict[str, Any]:
-        """Stacked ``g0`` -> ``layers``: a list of per-layer trees (views)."""
+        """Stacked groups ``g<i>`` -> ``layers``: one list of per-layer trees
+        (views), the groups in order."""
         def pick(t, i):
             return ({k: pick(v, i) for k, v in t.items()}
                     if isinstance(t, dict) else t[i])
-        out = {k: v for k, v in tree.items() if k != "g0"}
-        out["layers"] = [pick(tree["g0"], i)
-                         for i in range(self.cfg.n_layers)]
+        groups = [f"g{gi}" for gi in range(len(self.layer_groups()))]
+        out = {k: v for k, v in tree.items() if k not in groups}
+        out["layers"] = [pick(tree[g], i)
+                         for g, (n, _) in zip(groups, self.layer_groups())
+                         for i in range(n)]
         return out
 
     def init_params(self, generator: torch.Generator, device) -> Dict[str, Any]:
@@ -83,8 +103,16 @@ class DecoderOnlyLM:
             self.param_specs(), generator, dtype=self.dtype, device=device))
 
     # ----------------------------------------------------------------- block
-    def _ffn(self, lp, x):
-        return x + mlp(self.cfg, lp["ffn"], apply_norm(self.cfg, lp["ln2"], x))
+    def _ffn(self, i: int, lp, x):
+        """Residual + the FFN of layer i (dense MLP or MoE), and the MoE
+        aux loss (None for a dense layer).  The MoE block's capacity follows
+        the call's token count."""
+        cfg = self.cfg
+        h = apply_norm(cfg, lp["ln2"], x)
+        if self.dense_layers[i]:
+            return x + mlp(cfg, lp["ffn"], h), None
+        out, aux = moe_forward(cfg, lp["ffn"], h)
+        return x + out, aux
 
     def _embed(self, params, tokens):
         return take_embedding(params["embed"], tokens).to(self.dtype)
@@ -101,17 +129,20 @@ class DecoderOnlyLM:
 
     # --------------------------------------------------------------- forward
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Teacher-forced logits (B, S, V) and the (zero) aux loss."""
+        """Teacher-forced logits (B, S, V) and the summed MoE aux loss."""
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
         x = self._embed(params, tokens)
-        for lp in params["layers"]:
+        aux = torch.zeros((), device=x.device)
+        for i, lp in enumerate(params["layers"]):
             h = apply_norm(self.cfg, lp["ln1"], x)
-            x = self._ffn(lp, x + attn.attention(
+            x, a = self._ffn(i, lp, x + attn.attention(
                 self.cfg, lp["attn"], h, positions, causal=True,
                 window_eff=self.cfg.window))
-        return self._logits(params, x), torch.zeros((), device=x.device)
+            if a is not None:
+                aux = aux + a
+        return self._logits(params, x), aux
 
     # ---------------------------------------------------------------- decode
     def init_cache(self, batch: int, device,
@@ -153,7 +184,7 @@ class DecoderOnlyLM:
                     c[:, :S] = t.to(c.dtype)
                 else:
                     c.copy_(t[:, slots])
-            x = self._ffn(lp, x)
+            x, _ = self._ffn(i, lp, x)
         cache["pos"] = S
         return self._logits(params, x[:, -1:]), cache
 
@@ -170,7 +201,7 @@ class DecoderOnlyLM:
             h = apply_norm(cfg, lp["ln1"], x)
             a, _, _ = attn.decode_attention(cfg, lp["attn"], h, pos,
                                             cache["k"][i], cache["v"][i])
-            x = self._ffn(lp, x + a)
+            x, _ = self._ffn(i, lp, x + a)
         cache["pos"] = pos + 1
         return self._logits(params, x), cache
 

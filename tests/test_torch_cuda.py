@@ -5,7 +5,8 @@ the file imports no JAX, so it runs on a machine that has none:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 2e-5, bf16 2e-2 (the JAX package's kernel tolerances).
+Tolerances: fp32 2e-5, bf16 2e-2 (the JAX package's kernel tolerances;
+the grouped GEMM's atol grows with its depth d as sqrt(d)).
 """
 import numpy as np
 import pytest
@@ -14,6 +15,8 @@ import torch
 from repro_torch.configs import get_reduced_config
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.models import build_model
@@ -34,10 +37,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(a, b, tol):
+def _close(a, b, tol, atol=None):
     torch.cuda.synchronize()
     np.testing.assert_allclose(a.float().cpu().numpy(),
-                               b.float().cpu().numpy(), atol=tol, rtol=tol)
+                               b.float().cpu().numpy(),
+                               atol=tol if atol is None else atol, rtol=tol)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 @pytest.mark.cuda
@@ -88,7 +100,40 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, wdtype, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3.1-8b", "qwen3-4b"])
+@pytest.mark.parametrize("ECdh", [(4, 64, 96, 200), (2, 100, 48, 64),
+                                  (8, 8, 16, 16), (3, 37, 100, 45),
+                                  (2, 130, 72, 136), (1, 8, 2048, 1408),
+                                  (64, 8, 1408, 2048), (1, 1, 7, 3),
+                                  (2, 240, 40, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_kernel_matches_plain(cuda, dtype, ECdh):
+    """Ragged C, d and h (element-wise loads where d or h is not a multiple
+    of 8), E = 1, the decode capacity C = 8 and the prefill tile C = 240."""
+    E, C, d, h = ECdh
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(E, C, d, generator=g, device=cuda).to(dtype)
+    w = torch.randn(E, d, h, generator=g, device=cuda).to(dtype)
+    y = moe_gemm_fwd(x, w)
+    assert y.dtype == dtype and y.shape == (E, C, h)
+    _close(y, moe_gemm_ref(x, w), TOL[dtype], atol=TOL[dtype] * d ** 0.5)
+
+
+@pytest.mark.cuda
+def test_moe_gemm_kernel_counts_and_rejects(cuda):
+    x = torch.zeros(2, 8, 16, device=cuda)
+    n = moe_gemm_fwd.launches
+    moe_gemm_fwd(x, torch.zeros(2, 16, 4, device=cuda))
+    assert moe_gemm_fwd.launches == n + 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        moe_gemm_fwd(x, torch.zeros(2, 16, 4, device=cuda,
+                                    dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gemm_fwd(x, torch.zeros(2, 4, 16, device=cuda).transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.1-8b", "qwen3-4b",
+                                  "deepseek-v3-16b"])
 def test_reduced_model_on_card_matches_cpu(cuda, arch):
     """fp32 prefill + decode logits through the kernels equal the CPU's
     plain path on the same parameters (2e-4: fp32 sums in another order
@@ -96,13 +141,7 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
     cfg = get_reduced_config(arch).replace(compute_dtype="float32")
     model = build_model(cfg, max_cache_len=40)
     params = model.init_params(torch.Generator().manual_seed(0), "cpu")
-    on_card = {k: v for k, v in params.items() if k != "layers"}
-    on_card = {k: ({n: t.to(cuda) for n, t in v.items()}
-                   if isinstance(v, dict) else v.to(cuda))
-               for k, v in on_card.items()}
-    on_card["layers"] = [
-        {blk: {n: t.to(cuda) for n, t in p.items()} for blk, p in lp.items()}
-        for lp in params["layers"]]
+    on_card = _to(params, cuda)
     tokens = torch.randint(0, cfg.vocab_size, (2, 32),
                            generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():

@@ -4,7 +4,8 @@ Each plain version (the CPU path of the port's kernel wrappers) is held
 against the JAX oracle and the Pallas kernel (interpret mode) on the same
 numpy inputs (the CUDA kernels are held against the plain versions on a
 card in tests/test_torch_cuda.py, which imports no JAX).  Tolerances are the JAX package's
-own (tests/test_kernels.py): fp32 2e-5, bf16 2e-2.
+own (tests/test_kernels.py): fp32 2e-5, bf16 2e-2; the grouped GEMM's atol
+grows with the contraction depth as sqrt(d).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,11 +14,15 @@ import torch
 
 from repro.kernels.flash_attention import (flash_attention as pallas_fa,
                                            flash_attention_ref as jax_fa_ref)
+from repro.kernels.moe_gemm import moe_gemm as pallas_moe_gemm
+from repro.kernels.moe_gemm import moe_gemm_ref as jax_moe_gemm_ref
 from repro.kernels.rmsnorm import rmsnorm as pallas_rms
 from repro.kernels.rmsnorm import rmsnorm_ref as jax_rms_ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
 
@@ -132,3 +137,28 @@ def test_rmsnorm_plain_matches_jax(shape, dtype):
 def test_rmsnorm_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm_fwd(torch.zeros(2, 64), torch.ones(64))
+
+
+# ------------------------------------------------------------------ moe gemm
+@pytest.mark.parametrize("ECdh", [(4, 64, 96, 200), (2, 100, 48, 64),
+                                  (8, 8, 16, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gemm_plain_matches_jax(dtype, ECdh):
+    """The JAX sweep's shapes: the port's plain version against the jnp
+    oracle and the Pallas kernel."""
+    E, C, d, h = ECdh
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((E, C, d)).astype(np.float32)
+    w = rng.standard_normal((E, d, h)).astype(np.float32)
+    (jx, tx), (jw, tw) = _pair(x, dtype), _pair(w, dtype)
+    out = moe_gemm(tx, tw)
+    assert out.dtype == tx.dtype and out.shape == (E, C, h)
+    tol = DTYPES[dtype][2]
+    for ref in (jax_moe_gemm_ref(jx, jw), pallas_moe_gemm(jx, jw)):
+        np.testing.assert_allclose(_np(out), _np(ref), atol=tol * np.sqrt(d),
+                                   rtol=tol)
+
+
+def test_moe_gemm_kernel_wrapper_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gemm_fwd(torch.zeros(2, 8, 16), torch.zeros(2, 16, 4))

@@ -59,3 +59,11 @@ def test_serve_entry_point_runs_on_cpu_when_asked(capsys):
                        "--batch", "2", "--prompt-len", "8",
                        "--new-tokens", "3"]) == 0
     assert "generated (2, 3) tokens" in capsys.readouterr().out
+
+
+def test_serve_entry_point_serves_moe_on_cpu_when_asked(capsys):
+    assert serve.main(["--arch", "deepseek-v3-16b", "--reduced", "--device",
+                       "cpu", "--batch", "2", "--prompt-len", "8",
+                       "--new-tokens", "3"]) == 0
+    assert "deepseek-v3-16b-reduced device=cpu generated (2, 3) tokens" in \
+        capsys.readouterr().out

@@ -253,4 +253,4 @@ def test_unported_archs_and_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_config("mistral-7b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(get_reduced_config("llama3.1-8b").replace(family="moe"))
+        build_model(get_reduced_config("llama3.1-8b").replace(family="hybrid"))
