@@ -8,14 +8,16 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 2. each kernel against its plain PyTorch version on the card, at the shapes
    serving gives it and at small edge cases, with the kernel's, the plain
    version's and one library call's time (CUDA events, L2 flushed);
-3. full-width, full-depth llama3.1-8b, then deepseek-v3-16b (MoE; random
-   bf16 weights from --seed), each served through ``ServingLoop``: batch 4,
-   prompt 512, 32 greedy tokens, with every kernel's launch count read over
-   that run alone, then timed (host clock) and profiled (device time by
-   kernel, busy share);
+3. full-width, full-depth llama3.1-8b, then deepseek-v3-16b (MoE), then
+   rwkv6-3b (attention-free, the WKV6 recurrence; random bf16 weights from
+   --seed), each served through ``ServingLoop``: batch 4, prompt 512, 32
+   greedy tokens, with every kernel's launch count read over that run
+   alone, then timed (host clock) and profiled (device time by kernel, busy
+   share);
 4. the kernel path against the plain path at full width: a 2-layer llama
    prefill; deepseek's MoE block alone on one bf16 input; a 2-layer (one
-   dense, one MoE) deepseek prefill;
+   dense, one MoE) deepseek prefill; a 2-layer rwkv6-3b prefill and decode
+   steps;
 5. the JSON line of the kernels, then the JSON line of the device.
 
 It needs ``src/repro_torch`` beside it, and CUDA; without either it exits
@@ -49,6 +51,9 @@ from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv.kernel import wkv6_fwd  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.serve.decode import ServeConfig, ServingLoop  # noqa: E402
@@ -72,8 +77,14 @@ MOE_BLOCK_TOL = {"max_abs": 2 ** -5, "mean_abs": 1e-3}
 # there) can reorder a near-tied 6th/7th router score in layer 1, so some
 # tokens take another expert set; that cannot happen to most tokens
 MAX_FLIPPED_SHARE = 0.5
+# WKV6 kernel vs plain: the JAX package's WKV tolerances
+# (tests/test_kernels.py), atol 5e-4 fp32, 5e-2 bf16.  Both run the fp32 recurrence and differ only in
+# summation order; in bf16 each rounds y once at the end, so a y on a rounding
+# boundary lands one bf16 step (2**-7 relative) apart, which at |y| >= 8 (the
+# serving shape reaches ~12) exceeds 5e-2: hence the rtol of one step for bf16
+WKV_TOL = {torch.float32: (5e-4, 0.0), torch.bfloat16: (5e-2, 2 ** -7)}
 KERNELS = [fa_ops.flash_attention_fwd, rms_ops.rmsnorm_fwd,
-           moe_ops.moe_gemm_fwd]
+           moe_ops.moe_gemm_fwd, wkv_ops.wkv6_fwd]
 
 
 def log(msg: str) -> None:
@@ -157,7 +168,7 @@ def card() -> None:
 def build() -> None:
     t0 = time.perf_counter()
     _build.build_all()
-    for name in ("flash_attention", "rmsnorm", "moe_gemm"):
+    for name in ("flash_attention", "rmsnorm", "moe_gemm", "wkv6"):
         _build.library(name)
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     for entry in _build.build_log:
@@ -341,16 +352,90 @@ def moe_gemm_checks(g) -> dict:
     return row
 
 
+def wkv6_checks(g) -> dict:
+    dev = "cuda"
+    log("wkv6 (kernel vs plain):")
+
+    def inputs(B, S, H, D, dt, state):
+        """As tests/test_kernels.py draws them: r, k, v ~ 0.5 N(0,1),
+        w_log = -exp(N(0,1)) fp32, u ~ N(0,1); a state ~ 0.5 N(0,1)."""
+        r, k, v = (0.5 * torch.randn(B, S, H, D, generator=g, device=dev)
+                   for _ in range(3))
+        w = -torch.exp(torch.randn(B, S, H, D, generator=g, device=dev))
+        u = torch.randn(H, D, generator=g, device=dev)
+        s0 = (0.5 * torch.randn(B, H, D, D, generator=g, device=dev)
+              if state else None)
+        return r.to(dt), k.to(dt), v.to(dt), w, u, s0
+
+    def check_wkv(name, args) -> float:
+        """y against atol + rtol |y_ref|, the fp32 state against atol."""
+        atol, rtol = WKV_TOL[args[0].dtype]
+        (y, s), (y_ref, s_ref) = wkv6_fwd(*args), wkv6_ref(*args)
+        err = check_close(name + ", y", y, y_ref, atol, rtol)
+        s_err = max_err(s, s_ref)
+        check(name + ", state", s_err, atol)
+        return max(err, s_err)
+
+    cases = [  # (B, S, H, D, dtype, given state): D 16, ragged S, fp32
+        (2, 130, 3, 16, torch.float32, False),
+        (2, 130, 3, 16, torch.bfloat16, True),
+        (2, 77, 5, 32, torch.bfloat16, True),
+        (3, 64, 4, 64, torch.float32, True),
+        (1, 1, 8, 64, torch.float32, False),
+    ]
+    for B, S, H, D, dt, state in cases:
+        check_wkv(f"B{B} S{S} H{H} D{D} {str(dt)[6:]} state={state}",
+                  inputs(B, S, H, D, dt, state))
+
+    # the serving shapes: prefill from zero state, decode from a state
+    row = None
+    for what, S, state in (("prefill", 512, False), ("decode", 1, True)):
+        B, H, D, dt = 4, 40, 64, torch.bfloat16
+        args = inputs(B, S, H, D, dt, state)
+        err = check_wkv(f"{what} shape B{B} S{S} H{H} D{D} bf16 "
+                        f"state={state}", args)
+        ms = cuda_ms(lambda: wkv6_fwd(*args))
+        plain_ms = cuda_ms(lambda: wkv6_ref(*args), iters=5)
+        n = B * S * H * D
+        # r, k, v and y in bf16, w_log fp32, u, the state in (if given) and
+        # out; 5 fp32 operations per (t, d, e): y's multiply-add, the decay
+        # multiply, the k v product and its add
+        nbytes = (4 * n * 2 + n * 4 + H * D * 4
+                  + (1 + state) * B * H * D * D * 4)
+        flops = 5 * n * D
+        b_ms, b_by = bound(nbytes, flops, torch.float32)
+        log(f"  {what} shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"no library call, bound {b_ms * 1e3:.2f} us ({b_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); {CARD}")
+        if row is None:
+            row = dict(name="wkv6", route="cuda",
+                       source="src/repro_torch/kernels/csrc/wkv6.cu",
+                       replaces="src/repro/kernels/rwkv6_wkv/kernel.py:68",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        else:
+            row.update(decode_max_abs_err=err, decode_ms=ms,
+                       decode_plain_ms=plain_ms, decode_bound_ms=b_ms,
+                       decode_bound_by=b_by, decode_library_ms=None)
+    return row
+
+
 # --------------------------------------------------------------------------- #
-# Phase 3: serve llama3.1-8b and deepseek-v3-16b
+# Phase 3: serve llama3.1-8b, deepseek-v3-16b and rwkv6-3b
 # --------------------------------------------------------------------------- #
 def expected_launches(cfg, new_tokens: int) -> dict:
     """Launches of each kernel in one served run: prefill + new_tokens - 1
     decode steps, new_tokens forwards in all."""
     n_moe = (cfg.n_layers - cfg.moe.first_k_dense) if cfg.moe else 0
+    if cfg.family == "rwkv":      # no attention; ln0 after the embedding
+        return {"flash_attention_fwd": 0,
+                "rmsnorm_fwd": (2 * cfg.n_layers + 2) * new_tokens,
+                "moe_gemm_fwd": 0,
+                "wkv6_fwd": cfg.n_layers * new_tokens}
     return {"flash_attention_fwd": cfg.n_layers,         # prefill only
             "rmsnorm_fwd": (2 * cfg.n_layers + 1) * new_tokens,
-            "moe_gemm_fwd": 3 * n_moe * new_tokens}
+            "moe_gemm_fwd": 3 * n_moe * new_tokens,
+            "wkv6_fwd": 0}
 
 
 def serve(args, arch: str) -> dict:
@@ -366,9 +451,12 @@ def serve(args, arch: str) -> dict:
            f"top-{cfg.moe.top_k} {cfg.moe.router}, {cfg.moe.n_shared} shared, "
            f"{cfg.moe.first_k_dense} dense layer(s) of {cfg.moe.d_ff_dense}"
            if cfg.moe else "")
+    rwkv = (f"; RWKV6: WKV heads of {cfg.rwkv.head_dim}, decay lora "
+            f"{cfg.rwkv.decay_lora}, mix lora {cfg.rwkv.mix_lora}, no "
+            f"attention" if cfg.rwkv else "")
     log(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
         f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}{moe}; weights {n_bytes / 1e9:.2f} GB made on the "
+        f"{cfg.vocab_size}{moe}{rwkv}; weights {n_bytes / 1e9:.2f} GB made on the "
         f"card in {time.perf_counter() - t0:.1f} s")
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
@@ -477,7 +565,8 @@ def plain_path():
     with mock.patch.object(fa_ops, "flash_attention_fwd",
                            flash_attention_ref), \
             mock.patch.object(rms_ops, "rmsnorm_fwd", rmsnorm_ref), \
-            mock.patch.object(moe_ops, "moe_gemm_fwd", moe_gemm_ref):
+            mock.patch.object(moe_ops, "moe_gemm_fwd", moe_gemm_ref), \
+            mock.patch.object(wkv_ops, "wkv6_fwd", wkv6_ref):
         yield
 
 
@@ -576,6 +665,50 @@ def moe_kernel_vs_plain(args) -> None:
                              "path disagree")
 
 
+def rwkv_kernel_vs_plain(args, steps: int = 4) -> None:
+    """rwkv6-3b at full width, 2 layers: prefill, then decode steps on the
+    same fed tokens, each path from its own cache.  Both paths run the fp32
+    recurrence on bf16 r, k, v and round y to bf16 at the same point; the
+    sums run in another order, so values on a rounding boundary move one
+    bf16 step and such flips compound through 2 layers: E2E_TOL, as for
+    llama's prefill."""
+    cfg = get_config("rwkv6-3b").replace(n_layers=2)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = model.init_params(gen, "cuda")
+    rng = np.random.default_rng(args.seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))).long().cuda()
+    feed = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (args.batch, steps))).long().cuda()
+    V = cfg.vocab_size
+    worst = {"max_abs": 0.0, "mean_abs": 0.0}
+    with torch.inference_mode():
+        lk, ck = model.prefill(params, {"tokens": tokens})
+        with plain_path():
+            lp, cp = model.prefill(params, {"tokens": tokens})
+        for t in range(steps + 1):
+            if t:
+                lk, ck = model.decode_step(params, feed[:, t - 1:t], ck)
+                with plain_path():
+                    lp, cp = model.decode_step(params, feed[:, t - 1:t], cp)
+            if not torch.isfinite(lk[..., :V]).all():
+                raise AssertionError("non-finite rwkv6-3b logits")
+            diff = (lk[..., :V].float() - lp[..., :V].float()).abs()
+            worst["max_abs"] = max(worst["max_abs"], float(diff.max()))
+            worst["mean_abs"] = max(worst["mean_abs"], float(diff.mean()))
+    state_diff = [max_err(a, b) for a, b in zip(ck["wkv"], cp["wkv"])]
+    log(f"2-layer full-width rwkv6-3b prefill + {steps} decode steps, kernel "
+        f"vs plain path: worst logits max_abs {worst['max_abs']:.3e} mean_abs "
+        f"{worst['mean_abs']:.3e} (tol {E2E_TOL}), logit std "
+        f"{float(lp[..., :V].float().std()):.3f}; WKV state max_abs by layer "
+        f"{['%.3e' % e for e in state_diff]} (state max "
+        f"{max(float(s.abs().max()) for s in cp['wkv']):.3f})")
+    if worst["max_abs"] > E2E_TOL["max_abs"] or \
+            worst["mean_abs"] > E2E_TOL["mean_abs"]:
+        raise AssertionError("rwkv6-3b: kernel path and plain path disagree")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -592,11 +725,14 @@ def main(argv=None) -> int:
     card()
     build()
     g = torch.Generator(device="cuda").manual_seed(args.seed)
-    rows = [flash_checks(g), rmsnorm_checks(g), moe_gemm_checks(g)]
+    rows = [flash_checks(g), rmsnorm_checks(g), moe_gemm_checks(g),
+            wkv6_checks(g)]
     by_run = {"llama3.1-8b": serve(args, "llama3.1-8b")}
     kernel_vs_plain(args)
     by_run["deepseek-v3-16b"] = serve(args, "deepseek-v3-16b")
     moe_kernel_vs_plain(args)
+    by_run["rwkv6-3b"] = serve(args, "rwkv6-3b")
+    rwkv_kernel_vs_plain(args)
     for row, fn in zip(rows, KERNELS):
         counts = {arch: n[fn.__name__] for arch, n in by_run.items()}
         row["launches"] = sum(counts.values())

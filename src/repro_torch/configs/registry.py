@@ -15,6 +15,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen3-4b":         "qwen3_4b",
     "deepseek-v3-16b":  "deepseek_v3_16b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "rwkv6-3b":         "rwkv6_3b",
 }
 
 # archs of the JAX registry that a later slice of the port brings
@@ -25,7 +26,6 @@ _NOT_YET_PORTED: Dict[str, str] = {
     "nemotron-4-15b":       "other model families",
     "grok-1-314b":          "314 B params: needs the multi-card FSDP slice",
     "hymba-1.5b":           "other model families",
-    "rwkv6-3b":             "other model families (wkv6_fwd)",
     "whisper-medium":       "other model families",
     "llama-3.2-vision-90b": "other model families",
 }

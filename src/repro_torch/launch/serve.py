@@ -4,6 +4,8 @@
       --prompt-len 512 --new-tokens 32
   python -m repro_torch.launch.serve --arch deepseek-v3-16b --batch 4 \\
       --prompt-len 512 --new-tokens 32
+  python -m repro_torch.launch.serve --arch rwkv6-3b --batch 4 \\
+      --prompt-len 512 --new-tokens 32
   python -m repro_torch.launch.serve --arch qwen3-4b --reduced --device cpu
 
 Weights are random, made on the device from ``--seed``.

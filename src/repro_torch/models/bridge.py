@@ -30,6 +30,6 @@ def params_from_numpy(tree: Dict[str, Any], model, device) -> Dict[str, Any]:
             raise ValueError(f"param {'/'.join(path)}: shape {arr.shape} != "
                              f"spec {spec.shape}")
         t = torch.from_numpy(np.array(arr, np.float32))     # a writable copy
-        return t.to(device=device, dtype=load_dtype(spec, model.dtype))
+        return t.to(device=device, dtype=load_dtype(path, spec, model.dtype))
 
     return model.split_layers(tree_map_specs(leaf, specs))

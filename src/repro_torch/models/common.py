@@ -7,9 +7,12 @@ package builds, so that its parameters carry over path for path;
 
 Matrices are held in the compute dtype: casting once at load
 equals the JAX code's per-use ``.astype(x.dtype)``.  Vectors (norm weights,
-biases) stay float32 and are cast where the JAX code casts them.  The MoE
-router (the matrix whose output axis is ``experts``) stays float32 too: the
-JAX code computes its logits in fp32 from fp32 parameters.
+biases) stay float32 and are cast where the JAX code casts them.  Two
+matrices stay float32 too, because the JAX code reads them in fp32 from
+fp32 parameters: the MoE router (the matrix whose output axis is
+``experts``), whose logits it computes in fp32, and RWKV's time-first bonus
+``u`` (path ``.../tm/u``, shape (H, D)), which enters the fp32 WKV
+recurrence as it is.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 # --------------------------------------------------------------------------- #
@@ -45,12 +50,18 @@ def tree_map_specs(fn: Callable[[Tuple[str, ...], ParamSpec], Any], tree,
     return {k: tree_map_specs(fn, v, path + (k,)) for k, v in tree.items()}
 
 
-def load_dtype(spec: ParamSpec, compute_dtype: torch.dtype) -> torch.dtype:
-    """Matrices in the compute dtype; vectors (norms, biases) and the MoE
-    router in float32.  A stacked 'layers' axis does not count toward the
-    rank."""
+# leaves read in fp32 by the JAX code, by the last keys of their path
+_FLOAT32_LEAVES = {("tm", "u")}       # RWKV time_first (models/rwkv.py)
+
+
+def load_dtype(path: Tuple[str, ...], spec: ParamSpec,
+               compute_dtype: torch.dtype) -> torch.dtype:
+    """Matrices in the compute dtype; vectors (norms, biases), the MoE
+    router and RWKV's ``u`` in float32.  A stacked 'layers' axis does not
+    count toward the rank."""
     rank = len(spec.shape) - (spec.axes[:1] == ("layers",))
-    if rank < 2 or spec.axes[-1:] == ("experts",):
+    if rank < 2 or spec.axes[-1:] == ("experts",) \
+            or tuple(path[-2:]) in _FLOAT32_LEAVES:
         return torch.float32
     return compute_dtype
 
@@ -58,8 +69,8 @@ def load_dtype(spec: ParamSpec, compute_dtype: torch.dtype) -> torch.dtype:
 def init_params(spec_tree, generator: torch.Generator, *,
                 dtype: torch.dtype, device) -> Dict[str, Any]:
     """Random parameters made directly on ``device`` (the generator's)."""
-    def make(_path, spec: ParamSpec) -> torch.Tensor:
-        dt = load_dtype(spec, dtype)
+    def make(path, spec: ParamSpec) -> torch.Tensor:
+        dt = load_dtype(path, spec, dtype)
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == "ones":
@@ -80,6 +91,15 @@ def stack_specs(spec_tree, n: int):
     return tree_map_specs(
         lambda _p, s: ParamSpec((n,) + s.shape, ("layers",) + s.axes,
                                 s.init, s.scale), spec_tree)
+
+
+def layer_views(stacked, n: int):
+    """A tree stacked along a leading 'layers' axis -> n per-layer trees of
+    views."""
+    def pick(t, i):
+        return ({k: pick(v, i) for k, v in t.items()}
+                if isinstance(t, dict) else t[i])
+    return [pick(stacked, i) for i in range(n)]
 
 
 # --------------------------------------------------------------------------- #

@@ -2,9 +2,10 @@
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.rwkv6 import RWKV6LM
 from repro_torch.models.transformer import DecoderOnlyLM
 
-_FAMILIES = {"dense": DecoderOnlyLM, "moe": DecoderOnlyLM}
+_FAMILIES = {"dense": DecoderOnlyLM, "moe": DecoderOnlyLM, "rwkv": RWKV6LM}
 
 
 def build_model(cfg: ModelConfig, *, max_cache_len: int = 0):

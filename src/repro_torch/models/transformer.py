@@ -20,13 +20,12 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (ParamSpec, apply_norm, init_params,
-                                       norm_spec, pad_vocab, softcap,
-                                       stack_specs, take_embedding)
+from repro_torch.models.common import (COMPUTE_DTYPES, ParamSpec, apply_norm,
+                                       init_params, layer_views, norm_spec,
+                                       pad_vocab, softcap, stack_specs,
+                                       take_embedding)
 from repro_torch.models.mlp import mlp
 from repro_torch.models.moe import moe_forward, moe_or_mlp_specs
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class DecoderOnlyLM:
@@ -46,7 +45,7 @@ class DecoderOnlyLM:
             raise NotImplementedError(
                 f"{cfg.name}: the sliding-window ring cache is not ported "
                 f"yet (ROADMAP.md §1)")
-        self.dtype = _DTYPES[cfg.compute_dtype]
+        self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         # per layer: does it run a dense MLP (else the MoE block)
         self.dense_layers = [dense for n, dense in self.layer_groups()
                              for _ in range(n)]
@@ -87,14 +86,10 @@ class DecoderOnlyLM:
     def split_layers(self, tree: Dict[str, Any]) -> Dict[str, Any]:
         """Stacked groups ``g<i>`` -> ``layers``: one list of per-layer trees
         (views), the groups in order."""
-        def pick(t, i):
-            return ({k: pick(v, i) for k, v in t.items()}
-                    if isinstance(t, dict) else t[i])
         groups = [f"g{gi}" for gi in range(len(self.layer_groups()))]
         out = {k: v for k, v in tree.items() if k not in groups}
-        out["layers"] = [pick(tree[g], i)
-                         for g, (n, _) in zip(groups, self.layer_groups())
-                         for i in range(n)]
+        out["layers"] = [lp for g, (n, _) in zip(groups, self.layer_groups())
+                         for lp in layer_views(tree[g], n)]
         return out
 
     def init_params(self, generator: torch.Generator, device) -> Dict[str, Any]:

@@ -6,7 +6,11 @@ the file imports no JAX, so it runs on a machine that has none:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: fp32 2e-5, bf16 2e-2 (the JAX package's kernel tolerances;
-the grouped GEMM's atol grows with its depth d as sqrt(d)).
+the grouped GEMM's atol grows with its depth d as sqrt(d)); the WKV6
+recurrence 5e-4 fp32, 5e-2 bf16 (the JAX package's WKV tolerances), plus
+one bf16 step (2**-7 relative) on a bf16 y: both sides round the same fp32
+sum once, and a sum on a rounding boundary lands one step apart, which
+exceeds 5e-2 where |y| >= 8.
 """
 import numpy as np
 import pytest
@@ -19,6 +23,8 @@ from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rwkv6_wkv.kernel import wkv6_fwd
+from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
 from repro_torch.models import build_model
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -131,9 +137,63 @@ def test_moe_gemm_kernel_counts_and_rejects(cuda):
         moe_gemm_fwd(x, torch.zeros(2, 4, 16, device=cuda).transpose(1, 2))
 
 
+def _wkv_inputs(device, B, S, H, D, dtype, state, seed=0):
+    """r, k, v ~ 0.5 N(0,1) in dtype, w_log = -exp(N(0,1)) fp32, u ~ N(0,1)
+    fp32, state ~ 0.5 N(0,1) fp32 or None (as tests/test_kernels.py)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn(B, S, H, D, generator=g, device=device)
+               for _ in range(3))
+    w = -torch.exp(torch.randn(B, S, H, D, generator=g, device=device))
+    u = torch.randn(H, D, generator=g, device=device)
+    s0 = (0.5 * torch.randn(B, H, D, D, generator=g, device=device)
+          if state else None)
+    return r.to(dtype), k.to(dtype), v.to(dtype), w, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 17, 130, 512])
+def test_wkv6_kernel_matches_plain(cuda, S, dtype, D, state):
+    """One token (decode), ragged S (a partial last chunk), the serving
+    prompt; from zero or from a given state."""
+    args = _wkv_inputs(cuda, 2, S, 3, D, dtype, state)
+    s_in = None if args[5] is None else args[5].clone()
+    y, st = wkv6_fwd(*args)
+    y_ref, st_ref = wkv6_ref(*args)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol, rtol = (5e-4, 0) if dtype == torch.float32 else (5e-2, 2 ** -7)
+    _close(y, y_ref, rtol, atol=tol)
+    _close(st, st_ref, 0, atol=tol)
+    if s_in is not None:                     # the given state is not written
+        assert torch.equal(args[5], s_in)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_counts_and_rejects(cuda):
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 1, 4, 2, 16, torch.float32, True)
+    n = wkv6_fwd.launches
+    wkv6_fwd(r, k, v, w, u, s0)
+    assert wkv6_fwd.launches == n + 1
+    with pytest.raises(TypeError, match="all float32 or all"):
+        wkv6_fwd(r, k.to(torch.bfloat16), v, w, u)
+    with pytest.raises(TypeError, match="w_log, u and state in float32"):
+        wkv6_fwd(r, k, v, w, u.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6_fwd(r, k, v, w.transpose(1, 2).contiguous().transpose(1, 2), u)
+    r48, k48, v48, w48, u48, _ = _wkv_inputs(cuda, 1, 4, 2, 48,
+                                             torch.float32, False)
+    with pytest.raises(ValueError, match="no instance for head size 48"):
+        wkv6_fwd(r48, k48, v48, w48, u48)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_fwd(r, k, v, w, u.cpu())
+    assert wkv6_fwd.launches == n + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["llama3.1-8b", "qwen3-4b",
-                                  "deepseek-v3-16b"])
+                                  "deepseek-v3-16b", "rwkv6-3b"])
 def test_reduced_model_on_card_matches_cpu(cuda, arch):
     """fp32 prefill + decode logits through the kernels equal the CPU's
     plain path on the same parameters (2e-4: fp32 sums in another order

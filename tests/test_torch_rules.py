@@ -67,3 +67,11 @@ def test_serve_entry_point_serves_moe_on_cpu_when_asked(capsys):
                        "--new-tokens", "3"]) == 0
     assert "deepseek-v3-16b-reduced device=cpu generated (2, 3) tokens" in \
         capsys.readouterr().out
+
+
+def test_serve_entry_point_serves_rwkv_on_cpu_when_asked(capsys):
+    assert serve.main(["--arch", "rwkv6-3b", "--reduced", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "8",
+                       "--new-tokens", "3"]) == 0
+    assert "rwkv6-3b-reduced device=cpu generated (2, 3) tokens" in \
+        capsys.readouterr().out
