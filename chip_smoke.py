@@ -1,18 +1,25 @@
 """Chip smoke test of the PyTorch port on one NVIDIA card.
 
-  python3 chip_smoke.py            # from the root of a checkout, one card
+  python3 chip_smoke.py              # from the root of a checkout, one card
+  python3 chip_smoke.py --host-only  # phase 1, then host us per call only
 
 Phases, each of which fails the run (non-zero exit) if it goes wrong:
 
 1. the card (nvidia-smi) and the build of every CUDA kernel from csrc/;
 2. each kernel against its plain PyTorch version on the card, at the shapes
    serving gives it and at small edge cases, with the kernel's, the plain
-   version's and one library call's time (CUDA events, L2 flushed);
+   version's and one library call's time (CUDA events, L2 flushed); flash
+   attention and the grouped GEMM report which of their kernels each case
+   took (``launches_by_path``: "wgmma" for the Hopper tensor-core kernels,
+   "simt"/"wmma" for the ones kept for fp32 and unaligned inputs); then the
+   host time per call of those two, as the models call them, and of their
+   library calls (host clock, the device left to work off the queue);
 3. full-width, full-depth llama3.1-8b, then deepseek-v3-16b (MoE), then
    rwkv6-3b (attention-free, the WKV6 recurrence; random bf16 weights from
    --seed), each served through ``ServingLoop``: batch 4, prompt 512, 32
    greedy tokens, with every kernel's launch count read over that run
-   alone, then timed (host clock) and profiled (device time by kernel, busy
+   alone (every flash and grouped-GEMM launch must take the wgmma path),
+   then timed (host clock) and profiled (device time by kernel, busy
    share);
 4. the kernel path against the plain path at full width: a 2-layer llama
    prefill; deepseek's MoE block alone on one bf16 input; a 2-layer (one
@@ -85,6 +92,11 @@ MAX_FLIPPED_SHARE = 0.5
 WKV_TOL = {torch.float32: (5e-4, 0.0), torch.bfloat16: (5e-2, 2 ** -7)}
 KERNELS = [fa_ops.flash_attention_fwd, rms_ops.rmsnorm_fwd,
            moe_ops.moe_gemm_fwd, wkv_ops.wkv6_fwd]
+# the redesigned kernels' times before their wgmma redesign, by this script
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), at the shapes of phase 2:
+# printed in the log beside this run's times, never in the kernels line
+PREV_MS = {"flash_attention": {"ms": 0.5279},
+           "moe_gemm": {"ms": 0.4996, "decode_ms": 0.1501}}
 
 
 def log(msg: str) -> None:
@@ -120,6 +132,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in ev) / iters
+
+
+def host_us(fn, iters: int = 50, repeats: int = 5) -> float:
+    """Host time of one call of fn in us, the least over ``repeats`` runs of
+    ``iters`` calls: the Python around a launch and the launch itself.  The
+    calls queue on the device (fewer than its launch queue holds), so the
+    host never waits for the device inside a run."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / iters * 1e6
+
+
+def took(fn, call):
+    """call() and the path of ``fn`` (a wrapper with ``launches_by_path``)
+    that it launched."""
+    before = dict(fn.launches_by_path)
+    out = call()
+    paths = [k for k, n in fn.launches_by_path.items() if n != before[k]]
+    return out, "/".join(paths)
 
 
 def max_err(a, b) -> float:
@@ -175,6 +213,10 @@ def build() -> None:
         for line in entry.splitlines():
             if line.startswith("==") or "Used" in line or "spill" in line:
                 log("  " + line.strip())
+            elif "Compiling entry function" in line:   # the kernel, briefly
+                log("  " + line.split("'")[1].split("_cu_")[-1][:70])
+            elif "C75" in line:       # ptxas: wgmma serialized, and why
+                log("  " + line.strip()[:160])
 
 
 # --------------------------------------------------------------------------- #
@@ -183,35 +225,45 @@ def build() -> None:
 def flash_checks(g) -> dict:
     dev = "cuda"
     log("flash attention (kernel vs plain):")
-    cases = [  # (B, S, H, kvH, D, dtype, causal, window, mask)
-        (4, 200, 8, 2, 64, torch.float32, True, 0, False),
-        (2, 200, 8, 2, 64, torch.bfloat16, True, 32, False),
-        (2, 131, 4, 4, 128, torch.float32, False, 0, False),
-        (2, 96, 4, 2, 32, torch.bfloat16, False, 0, True),
-        (1, 77, 4, 1, 16, torch.float32, True, 16, True),
+    cases = [  # (B, Sq, Sk, H, kvH, D, dtype, causal, window, q_offset, mask)
+        (4, 200, 200, 8, 2, 64, torch.float32, True, 0, 0, False),
+        (2, 200, 200, 8, 2, 64, torch.bfloat16, True, 32, 0, False),
+        (2, 131, 131, 4, 4, 128, torch.float32, False, 0, 0, False),
+        (2, 96, 96, 4, 2, 32, torch.bfloat16, False, 0, 0, True),
+        (1, 77, 77, 4, 1, 16, torch.float32, True, 16, 0, True),
+        (2, 65, 193, 8, 2, 128, torch.bfloat16, True, 0, 128, False),
+        (2, 130, 130, 4, 4, 128, torch.bfloat16, False, 0, 0, True),
+        (1, 777, 777, 8, 1, 128, torch.bfloat16, True, 0, 0, False),
     ]
-    for B, S, H, kvH, D, dt, causal, window, use_mask in cases:
-        q = torch.randn(B, S, H, D, generator=g, device=dev).to(dt)
-        k = torch.randn(B, S, kvH, D, generator=g, device=dev).to(dt)
-        v = torch.randn(B, S, kvH, D, generator=g, device=dev).to(dt)
+    for B, Sq, Sk, H, kvH, D, dt, causal, window, off, use_mask in cases:
+        q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
+        k = torch.randn(B, Sk, kvH, D, generator=g, device=dev).to(dt)
+        v = torch.randn(B, Sk, kvH, D, generator=g, device=dev).to(dt)
         mask = None
         if use_mask:
-            mask = torch.rand(S, S, generator=g, device=dev) < 0.6
-            mask |= torch.eye(S, dtype=torch.bool, device=dev)
-        kw = dict(causal=causal, window=window)
-        err = max_err(flash_attention_fwd(q, k, v, mask, **kw),
-                      flash_attention_ref(q, k, v, mask, **kw))
-        check(f"B{B} S{S} H{H}/{kvH} D{D} {str(dt)[6:]} causal={causal} "
-              f"window={window} mask={use_mask}", err, TOL[dt])
+            mask = torch.rand(Sq, Sk, generator=g, device=dev) < 0.6
+            mask[:, :min(Sq, Sk)] |= torch.eye(min(Sq, Sk), dtype=torch.bool,
+                                              device=dev)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        out, path = took(flash_attention_fwd,
+                         lambda: flash_attention_fwd(q, k, v, mask, **kw))
+        err = max_err(out, flash_attention_ref(q, k, v, mask, **kw))
+        check(f"B{B} Sq{Sq} Sk{Sk} H{H}/{kvH} D{D} {str(dt)[6:]} "
+              f"causal={causal} window={window} q_offset={off} "
+              f"mask={use_mask} [{path}]", err, TOL[dt])
 
     # the serving prefill shape: B 4, S 512, H 32/8, D 128, bf16, causal
     B, S, H, kvH, D, dt = 4, 512, 32, 8, 128, torch.bfloat16
     q = torch.randn(B, S, H, D, generator=g, device=dev).to(dt)
     k = torch.randn(B, S, kvH, D, generator=g, device=dev).to(dt)
     v = torch.randn(B, S, kvH, D, generator=g, device=dev).to(dt)
-    err = max_err(flash_attention_fwd(q, k, v, causal=True),
-                  flash_attention_ref(q, k, v, causal=True))
-    check(f"main shape B{B} S{S} H{H}/{kvH} D{D} bf16 causal", err, TOL[dt])
+    out, path = took(flash_attention_fwd,
+                     lambda: flash_attention_fwd(q, k, v, causal=True))
+    err = max_err(out, flash_attention_ref(q, k, v, causal=True))
+    check(f"main shape B{B} S{S} H{H}/{kvH} D{D} bf16 causal [{path}]", err,
+          TOL[dt])
+    if path != "wgmma":
+        raise AssertionError(f"main shape took the {path} kernel")
     ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True),
                        iters=5)
@@ -226,9 +278,11 @@ def flash_checks(g) -> dict:
     pairs = S * (S + 1) // 2                                  # causal (q,k)
     flops = 4 * B * H * D * pairs
     b_ms, b_by = bound(nbytes, flops, dt)
-    log(f"  main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}: "
-        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    log(f"  main shape: kernel {ms:.4f} ms ({ms / lib_ms:.2f}x sdpa; before "
+        f"the redesign {PREV_MS['flash_attention']['ms']} ms in PERF.md), "
+        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {CARD}")
     # the explicit-mask form (the TPU's _fa_kernel_masked) at the same shape
     mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril_()
     m_err = max_err(flash_attention_fwd(q, k, v, mask),
@@ -246,7 +300,9 @@ def flash_checks(g) -> dict:
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:105",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, mask_ms=m_ms,
+                mask_plain_ms=m_plain, mask_bound_ms=m_bound,
+                mask_library_ms=m_lib)
 
 
 def rmsnorm_checks(g) -> dict:
@@ -308,10 +364,12 @@ def moe_gemm_checks(g) -> dict:
     cases = [  # (E, C, d, h, dtype): ragged C, d, h; E = 1; C = 8
         (4, 64, 96, 200, torch.float32),
         (3, 37, 100, 45, torch.float32),
-        (3, 37, 100, 45, torch.bfloat16),       # element-wise loads
-        (2, 130, 72, 136, torch.bfloat16),      # two 128-row C-tiles
+        (3, 37, 100, 45, torch.bfloat16),       # element-wise loads (wmma)
+        (2, 130, 72, 136, torch.bfloat16),      # one 256-row C-tile
         (2, 240, 40, 24, torch.bfloat16),
         (1, 8, 2048, 1408, torch.bfloat16),     # E 1, C 8
+        (3, 9, 72, 136, torch.bfloat16),        # C padded to 16
+        (3, 65, 200, 72, torch.bfloat16),       # one 128-row C-tile
         (8, 8, 16, 16, torch.float32),
         (64, 8, 1408, 2048, torch.bfloat16),    # decode, the wd form
         (64, 240, 1408, 2048, torch.bfloat16),  # prefill, the wd form
@@ -319,7 +377,8 @@ def moe_gemm_checks(g) -> dict:
     for E, C, d, h, dt in cases:
         x = torch.randn(E, C, d, generator=g, device=dev).to(dt)
         w = torch.randn(E, d, h, generator=g, device=dev).to(dt)
-        check_close(f"E{E} C{C} d{d} h{h} {str(dt)[6:]}", moe_gemm_fwd(x, w),
+        y, path = took(moe_gemm_fwd, lambda: moe_gemm_fwd(x, w))
+        check_close(f"E{E} C{C} d{d} h{h} {str(dt)[6:]} [{path}]", y,
                     moe_gemm_ref(x, w), TOL[dt] * d ** 0.5, TOL[dt])
 
     # the serving shapes of wg / wu: prefill C 240 (T 2048), decode C 8 (T 4)
@@ -328,16 +387,22 @@ def moe_gemm_checks(g) -> dict:
         E, d, h, dt = 64, 2048, 1408, torch.bfloat16
         x = torch.randn(E, C, d, generator=g, device=dev).to(dt)
         w = torch.randn(E, d, h, generator=g, device=dev).to(dt)
-        err = check_close(f"{what} shape ({E},{C},{d})x({E},{d},{h}) bf16",
-                          moe_gemm_fwd(x, w), moe_gemm_ref(x, w),
+        y, path = took(moe_gemm_fwd, lambda: moe_gemm_fwd(x, w))
+        err = check_close(f"{what} shape ({E},{C},{d})x({E},{d},{h}) bf16 "
+                          f"[{path}]", y, moe_gemm_ref(x, w),
                           TOL[dt] * d ** 0.5, TOL[dt])
+        if path != "wgmma":
+            raise AssertionError(f"{what} shape took the {path} kernel")
         ms = cuda_ms(lambda: moe_gemm_fwd(x, w))
         plain_ms = cuda_ms(lambda: moe_gemm_ref(x, w), iters=5)
         lib_ms = cuda_ms(lambda: torch.bmm(x, w))
         nbytes = 2 * (x.numel() + w.numel() + E * C * h)
         flops = 2 * E * C * d * h
         b_ms, b_by = bound(nbytes, flops, dt)
-        log(f"  {what} shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        prev = PREV_MS["moe_gemm"]["ms" if row is None else "decode_ms"]
+        log(f"  {what} shape: kernel {ms:.4f} ms ({ms / lib_ms:.2f}x "
+            f"torch.bmm; before the redesign {prev} ms in PERF.md), plain "
+            f"{plain_ms:.4f} ms, "
             f"torch.bmm {lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {CARD}")
         if row is None:
@@ -350,6 +415,34 @@ def moe_gemm_checks(g) -> dict:
             row.update(decode_ms=ms, decode_plain_ms=plain_ms,
                        decode_bound_ms=b_ms, decode_library_ms=lib_ms)
     return row
+
+
+def host_costs(g) -> dict:
+    """Host us per call of flash attention and the grouped GEMM as the models
+    call them (``ops``), and of their library calls, at phase 2's main
+    shapes.  It uses only what every version of the port has, so that
+    ``--host-only`` can time an older checkout's wrappers the same way."""
+    dev, dt = "cuda", torch.bfloat16
+    q = torch.randn(4, 512, 32, 128, generator=g, device=dev).to(dt)
+    k, v = (torch.randn(4, 512, 8, 128, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flash = dict(
+        host_us=host_us(lambda: fa_ops.flash_attention(q, k, v, causal=True)),
+        library_host_us=host_us(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)))
+    moe = {}
+    w = torch.randn(64, 2048, 1408, generator=g, device=dev).to(dt)
+    for pre, C in (("", 240), ("decode_", 8)):
+        x = torch.randn(64, C, 2048, generator=g, device=dev).to(dt)
+        moe[pre + "host_us"] = host_us(lambda: moe_ops.moe_gemm(x, w))
+        moe[pre + "library_host_us"] = host_us(lambda: torch.bmm(x, w))
+    log(f"host us per call: flash {flash['host_us']:.2f} (sdpa "
+        f"{flash['library_host_us']:.2f}); grouped GEMM prefill "
+        f"{moe['host_us']:.2f} (torch.bmm {moe['library_host_us']:.2f}), "
+        f"decode {moe['decode_host_us']:.2f} (torch.bmm "
+        f"{moe['decode_library_host_us']:.2f}); {CARD}")
+    return {"flash_attention": flash, "moe_gemm": moe}
 
 
 def wkv6_checks(g) -> dict:
@@ -467,15 +560,17 @@ def serve(args, arch: str) -> dict:
     log(f"launch counts before the run: "
         f"{ {k.__name__: k.launches for k in KERNELS} }; set to 0")
     for k in KERNELS:
-        k.launches = 0
+        _build.reset_counts(k)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = loop.serve(prompts)                       # the main path
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in KERNELS}
+    by_path = {k.__name__: dict(k.launches_by_path) for k in KERNELS
+               if hasattr(k, "launches_by_path")}
     log(f"served {out.shape} tokens in {wall:.3f} s; launch counts after "
-        f"the run: {launches}")
+        f"the run: {launches}, by path: {by_path}")
 
     if out.shape != (args.batch, args.new_tokens) or out.min() < 0 \
             or out.max() >= cfg.vocab_size:
@@ -485,6 +580,10 @@ def serve(args, arch: str) -> dict:
         if launches[name] != want:
             raise AssertionError(f"{name}: {launches[name]} launches, "
                                  f"expected {want}")
+    for name, paths in by_path.items():    # the Hopper kernels, every time
+        if paths["wgmma"] != launches[name]:
+            raise AssertionError(f"{name}: {paths} of {launches[name]} "
+                                 f"launches; all must take the wgmma path")
 
     # timed breakdown on the same model (launches no longer counted)
     tokens = torch.from_numpy(prompts).long().cuda()
@@ -520,7 +619,7 @@ def serve(args, arch: str) -> dict:
                        lambda: model.decode_step(params, tok, cache))
     del params, cache, loop
     torch.cuda.empty_cache()
-    return launches
+    return launches, by_path
 
 
 def device_profile(what: str, step_ms: float, fn, top: int = 6) -> None:
@@ -540,9 +639,11 @@ def device_profile(what: str, step_ms: float, fn, top: int = 6) -> None:
     log(f"{what} profile: device busy {busy:.2f} ms of {step_ms:.2f} ms "
         f"({100 * busy / step_ms:.1f}%, idle {100 - 100 * busy / step_ms:.1f}%)"
         f" in {sum(r[1] for r in rows)} kernel launches; {CARD}")
-    for ms, count, key in sorted(rows, reverse=True)[:top]:
-        log(f"  {ms:8.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  x{count:<4d} "
-            f"{key[:90]}")
+    ours = ("fa_fwd", "moe_gemm", "rms_kernel", "wkv6_kernel")
+    for n, (ms, count, key) in enumerate(sorted(rows, reverse=True)):
+        if n < top or any(k in key for k in ours):   # and the port's kernels
+            log(f"  {ms:8.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  "
+                f"x{count:<4d} {key[:90]}")
 
 
 def _leaves(tree):
@@ -715,6 +816,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--host-only", action="store_true",
+                    help="phase 1 and the host cost per call only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -725,8 +828,14 @@ def main(argv=None) -> int:
     card()
     build()
     g = torch.Generator(device="cuda").manual_seed(args.seed)
+    if args.host_only:
+        print(json.dumps({"host_us": host_costs(g)}), flush=True)
+        return 0
     rows = [flash_checks(g), rmsnorm_checks(g), moe_gemm_checks(g),
             wkv6_checks(g)]
+    costs = host_costs(g)
+    for row in rows:
+        row.update(costs.get(row["name"], {}))
     by_run = {"llama3.1-8b": serve(args, "llama3.1-8b")}
     kernel_vs_plain(args)
     by_run["deepseek-v3-16b"] = serve(args, "deepseek-v3-16b")
@@ -734,9 +843,14 @@ def main(argv=None) -> int:
     by_run["rwkv6-3b"] = serve(args, "rwkv6-3b")
     rwkv_kernel_vs_plain(args)
     for row, fn in zip(rows, KERNELS):
-        counts = {arch: n[fn.__name__] for arch, n in by_run.items()}
+        name = fn.__name__
+        counts = {arch: n[name] for arch, (n, _) in by_run.items()}
         row["launches"] = sum(counts.values())
         row["launches_by_run"] = counts
+        if hasattr(fn, "launches_by_path"):
+            row["launches_by_path"] = {
+                path: sum(p[name][path] for _, p in by_run.values())
+                for path in fn.launches_by_path}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

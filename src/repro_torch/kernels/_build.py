@@ -29,6 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# path codes of csrc/common.cuh: the kernel a wrapper asks its entry point for
+PATHS = ("simt", "wgmma", "wmma")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_log: List[str] = []       # nvcc's output (ptxas register/smem report)
@@ -103,6 +105,20 @@ def entry(name: str, fn_name: str, argtypes: list):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def count_launch(fn, path: str) -> None:
+    """Count one launch of wrapper ``fn``, on kernel ``path``."""
+    fn.launches += 1
+    fn.launches_by_path[path] += 1
+
+
+def reset_counts(fn) -> None:
+    """Set a wrapper's launch count, and its count per path if it keeps one,
+    to 0."""
+    fn.launches = 0
+    if hasattr(fn, "launches_by_path"):
+        fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
 
 
 def check(name: str, err: int, what: str) -> None:

@@ -10,28 +10,36 @@
 //   prefill (C 240): 475 MB (x 63, w 369, y 43) over 3.35 TB/s = 0.142 ms,
 //     88.6 GFLOP over 989 TFLOP/s = 0.090 ms: bytes, but close to even;
 //   decode (C 8): 373 MB, almost all weights = 0.111 ms: bytes.
-// Both are weight reads first, so every weight element is read from device
-// memory once per C-tile, and the C-tile is as tall as C allows: one tile at
-// decode, two at prefill.
+// Both are weight reads first, so each block reads its weight tile from
+// device memory once for all of C.
 //
-// Design (bf16): one block of 8 warps per (C-tile, 128 h-columns, expert),
-// looping over d in steps of 64; tensor cores through wmma (16x16x16 bf16,
-// fp32 accumulators in registers); a 3-stage cp.async ring of 16-byte loads
-// into padded shared memory, so that two tiles are in flight while one is
-// multiplied. Each thread works out its load addresses and row/column masks
-// once and only advances them along d, so that issuing the copies costs few
-// instructions beside the tensor-core work; 128 registers a thread keep two
-// blocks on an SM. The C-tile is 16, 32, 64 or 128 rows, the least that
-// covers C (16 at decode, where C is 8), and the blocks of one (h-tile,
-// expert) are neighbours in the grid, so that a weight tile read by one
-// C-tile is still in L2 for the next. The TPU wrapper pads C, d and h to its
-// block sizes; here the loads zero-fill past C and d, and the stores mask
-// past C and h. Where d or h is not a multiple of 8 (or a pointer is not
-// 16-byte aligned), the same kernel loads and stores element by element.
+// Three kernels, chosen by dtype and shape before launch (by the Python
+// wrapper, moe_gemm_path, which passes its choice to the entry point):
 //
-// Design (fp32): plain CUDA-core FMA tiles (64x64 per block, 4x4 per thread),
-// no tensor cores, so that fp32 stays fp32 (TF32 would round the inputs).
+// moe_gemm_wgmma<MT> (bf16, C > 64, d and h multiples of 8, 16-byte aligned
+// pointers; prefill): one block per (C-tile of 128 MT rows, 128 h-columns,
+// expert), two consumer warpgroups of 64 MT rows each and one producer warp.
+// The producer keeps a ring of BK = 64 stages (6 at MT 1, 4 at MT 2) filled
+// by TMA from 3-D tensor maps over x (d, C, E) and w (h, d, E), so that a
+// box zero-fills past C and d inside its own expert (the TPU wrapper's
+// padding, done by the copy engine).  Consumers run wgmma from shared
+// memory: A = x, K-major; B = w, MN-major (h contiguous: the transpose bit).
+// C 240 takes MT 2, one C-tile, so every weight byte is read once.  y is
+// staged in the drained ring and written by a 3-D TMA store that clips at C
+// and h.
+//
+// moe_gemm_wgmma_t<NC> (the same inputs, C <= 64; decode): A and B swapped,
+// y[e]^T = w[e]^T x[e]^T, so that the 64-row M side is h (A = w from shared
+// memory, MN-major) and C, padded to NC = 8, 16, 32 or 64, is wgmma's N.  One
+// consumer warpgroup per 64 h-columns streams its weight panel through an
+// 8-stage TMA ring: the bytes-bound case.
+//
+// moe_gemm_tc<BM> (bf16 where TMA cannot go: d or h not a multiple of 8, or
+// an unaligned pointer): wmma 16x16x16 tiles fed element by element.
+// moe_gemm_simt (fp32): CUDA-core FMA tiles (64x64 per block, 4x4 per
+// thread), so that fp32 stays fp32 (TF32 would round the inputs).
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <mma.h>
 
@@ -40,11 +48,10 @@ namespace {
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-// ------------------------------------------------------------- bf16, wmma
+// ------------------------------------------- bf16 where TMA cannot go, wmma
 constexpr int TC_THREADS = 256;
 constexpr int BN = 128;
 constexpr int BK = 64;
-constexpr int STAGES = 3;
 constexpr int A_LD = BK + 8;   // padded shared-memory rows, in elements
 constexpr int B_LD = BN + 8;
 
@@ -54,88 +61,13 @@ template <int BM> struct TcTile {
   static constexpr int FM = BM / (16 * WARPS_M);   // 16x16 fragments per warp
   static constexpr int FN = BN / (16 * WARPS_N);
   static constexpr int A_ELEMS = BM * A_LD;
-  static constexpr int STAGE_ELEMS = A_ELEMS + BK * B_LD;
-  static constexpr size_t PIPE_BYTES = STAGES * STAGE_ELEMS * sizeof(bf16);
-  // the epilogue's per-warp 16x16 fp32 scratch reuses the ring
+  static constexpr size_t TILE_BYTES = (A_ELEMS + BK * B_LD) * sizeof(bf16);
+  // the epilogue's per-warp 16x16 fp32 scratch reuses the tiles
   static constexpr size_t SCRATCH_BYTES = 8 * 256 * sizeof(float);
-  static constexpr size_t SMEM = PIPE_BYTES > SCRATCH_BYTES ? PIPE_BYTES : SCRATCH_BYTES;
+  static constexpr size_t SMEM = TILE_BYTES > SCRATCH_BYTES ? TILE_BYTES : SCRATCH_BYTES;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;              // 0: zero-fill, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// The 16-byte copies of one thread (d % 8 == 0, h % 8 == 0, so that a vector
-// is all in or all out).  A thread copies the same column of every
-// A_ROWS-th row of the x tile and every B_ROWS-th row of the w tile, so that
-// one pointer, one shared-memory offset and a row mask describe all its
-// copies; the pointers advance one BK step along d per stage.  Zero past C,
-// d and h.
-template <int BM>
-struct VecLoader {
-  static constexpr int A_ROWS = TC_THREADS / (BK / 8);
-  static constexpr int B_ROWS = TC_THREADS / (BN / 8);
-  static constexpr int A_PASSES = (BM + A_ROWS - 1) / A_ROWS;
-  static constexpr int B_PASSES = BK / B_ROWS;
-  const bf16* a_src;
-  const bf16* b_src;
-  int64_t a_step, b_step;       // A_ROWS rows of x, B_ROWS rows of w
-  int64_t b_kstep;              // BK rows of w
-  int a_row, a_col, a_dst, b_row, b_dst, k0;
-  unsigned a_rows;              // bit t: row a_row + t * A_ROWS is < C
-  bool b_ok;
-
-  __device__ __forceinline__ VecLoader(const bf16* xe, const bf16* we, int c0,
-                                       int n0, int C, int d, int h) : k0(0) {
-    a_row = threadIdx.x / (BK / 8);
-    a_col = (threadIdx.x % (BK / 8)) * 8;
-    a_rows = 0;
-#pragma unroll
-    for (int t = 0; t < A_PASSES; ++t)
-      if (a_row + t * A_ROWS < BM && c0 + a_row + t * A_ROWS < C) a_rows |= 1u << t;
-    a_src = xe + (int64_t)(c0 + a_row) * d + a_col;
-    a_step = (int64_t)A_ROWS * d;
-    a_dst = a_row * A_LD + a_col;
-    b_row = threadIdx.x / (BN / 8);
-    const int b_col = (threadIdx.x % (BN / 8)) * 8;
-    b_ok = n0 + b_col < h;
-    b_src = we + (int64_t)b_row * h + n0 + b_col;
-    b_step = (int64_t)B_ROWS * h;
-    b_kstep = (int64_t)BK * h;
-    b_dst = b_row * B_LD + b_col;
-  }
-
-  // the next BK-slice of d into stage buffers sA, sB
-  __device__ __forceinline__ void load(bf16* sA, bf16* sB, const bf16* xe,
-                                       const bf16* we, int d) {
-    const bool a_kok = k0 + a_col < d;
-#pragma unroll
-    for (int t = 0; t < A_PASSES; ++t) {
-      if (A_PASSES * A_ROWS > BM && a_row + t * A_ROWS >= BM) continue;
-      const bool ok = a_kok && ((a_rows >> t) & 1u);
-      cp_async16(sA + a_dst + t * A_ROWS * A_LD, ok ? a_src + t * a_step : xe, ok);
-    }
-#pragma unroll
-    for (int t = 0; t < B_PASSES; ++t) {
-      const bool ok = b_ok && k0 + b_row + t * B_ROWS < d;
-      cp_async16(sB + b_dst + t * B_ROWS * B_LD, ok ? b_src + t * b_step : we, ok);
-    }
-    a_src += BK;
-    b_src += b_kstep;
-    k0 += BK;
-  }
-};
-
-// The same tiles element by element, for any d and h.
+// The x and w tiles element by element, zero past C, d and h.
 template <int BM>
 __device__ __forceinline__ void scalar_load(bf16* sA, bf16* sB, const bf16* xe,
                                             const bf16* we, int c0, int n0,
@@ -153,13 +85,14 @@ __device__ __forceinline__ void scalar_load(bf16* sA, bf16* sB, const bf16* xe,
   }
 }
 
-template <int BM, bool VEC>
+template <int BM>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 moe_gemm_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
             bf16* __restrict__ y, int C, int d, int h) {
   using Tile = TcTile<BM>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sA = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sB = sA + Tile::A_ELEMS;
 
   const int e = blockIdx.z;
   const int c0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
@@ -174,25 +107,10 @@ moe_gemm_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < Tile::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  VecLoader<BM> vl(xe, we, c0, n0, C, d, h);
-  auto load = [&](int kt) {   // tiles are loaded in order kt = 0, 1, ...
-    bf16* st = smem + (kt % STAGES) * Tile::STAGE_ELEMS;
-    if (VEC) vl.load(st, st + Tile::A_ELEMS, xe, we, d);
-    else scalar_load<BM>(st, st + Tile::A_ELEMS, xe, we, c0, n0, kt * BK, C, d, h);
-  };
-  const int nk = (d + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();   // tile kt has landed (this thread's part)
-    __syncthreads();               // ... and everyone's; slot kt-1 is free
-    if (kt + STAGES - 1 < nk) load(kt + STAGES - 1);
-    cp_async_commit();
-    const bf16* sA = smem + (kt % STAGES) * Tile::STAGE_ELEMS;
-    const bf16* sB = sA + Tile::A_ELEMS;
+  for (int k0 = 0; k0 < d; k0 += BK) {
+    __syncthreads();               // the last tile's reads are done
+    scalar_load<BM>(sA, sB, xe, we, c0, n0, k0, C, d, h);
+    __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[Tile::FM];
@@ -211,9 +129,8 @@ moe_gemm_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
   }
 
-  // epilogue: each fragment through a per-warp 16x16 fp32 scratch in the
-  // drained ring; a lane stores 8 neighbouring outputs of one row
-  cp_async_wait<0>();
+  // epilogue: each fragment through a per-warp 16x16 fp32 scratch over the
+  // tiles; a lane stores 8 neighbouring outputs of one row
   __syncthreads();
   float* sc = reinterpret_cast<float*>(smem_raw) + warp * 256;
   const int r = lane >> 1, c = (lane & 1) * 8;
@@ -227,46 +144,35 @@ moe_gemm_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int gn = n0 + (wn * Tile::FN + j) * 16 + c;
       if (gr < C) {
         bf16* dst = y + ((int64_t)e * C + gr) * h + gn;
-        if (VEC) {
-          if (gn < h) {
-            uint4 pack;
-            bf16* pv = reinterpret_cast<bf16*>(&pack);
 #pragma unroll
-            for (int t = 0; t < 8; ++t) pv[t] = __float2bfloat16_rn(sc[r * 16 + c + t]);
-            *reinterpret_cast<uint4*>(dst) = pack;
-          }
-        } else {
-#pragma unroll
-          for (int t = 0; t < 8; ++t)
-            if (gn + t < h) dst[t] = __float2bfloat16_rn(sc[r * 16 + c + t]);
-        }
+        for (int t = 0; t < 8; ++t)
+          if (gn + t < h) dst[t] = __float2bfloat16_rn(sc[r * 16 + c + t]);
       }
       __syncwarp();
     }
   }
 }
 
-template <int BM, bool VEC>
+template <int BM>
 cudaError_t launch_tc(const void* x, const void* w, void* y, int E, int C,
                       int d, int h, cudaStream_t s) {
   const size_t smem = TcTile<BM>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      moe_gemm_tc<BM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(    // once per instance
+      moe_gemm_tc<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((C + BM - 1) / BM, (h + BN - 1) / BN, E);
-  moe_gemm_tc<BM, VEC><<<grid, TC_THREADS, smem, s>>>(
+  moe_gemm_tc<BM><<<grid, TC_THREADS, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<bf16*>(y), C, d, h);
   return cudaGetLastError();
 }
 
-template <bool VEC>
 cudaError_t dispatch_tc(const void* x, const void* w, void* y, int E, int C,
                         int d, int h, cudaStream_t s) {
-  if (C <= 16) return launch_tc<16, VEC>(x, w, y, E, C, d, h, s);
-  if (C <= 32) return launch_tc<32, VEC>(x, w, y, E, C, d, h, s);
-  if (C <= 64) return launch_tc<64, VEC>(x, w, y, E, C, d, h, s);
-  return launch_tc<128, VEC>(x, w, y, E, C, d, h, s);
+  if (C <= 16) return launch_tc<16>(x, w, y, E, C, d, h, s);
+  if (C <= 32) return launch_tc<32>(x, w, y, E, C, d, h, s);
+  if (C <= 64) return launch_tc<64>(x, w, y, E, C, d, h, s);
+  return launch_tc<128>(x, w, y, E, C, d, h, s);
 }
 
 // --------------------------------------------------------- fp32, CUDA cores
@@ -318,8 +224,258 @@ moe_gemm_simt(const T* __restrict__ x, const T* __restrict__ w,
     }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+// ------------------------------------------------------ bf16, wgmma + TMA
+constexpr int WG_BK = 64;                 // d per ring stage
+constexpr int WG_BN = 128;                // h per block: two 64-wide boxes
+constexpr int RING_BYTES = 192 * 1024;
+
+template <int MT> struct WgTile {
+  static constexpr int BM = 128 * MT;                // rows of C per block
+  static constexpr int A_BYTES = BM * 128;           // BM rows x 64 d
+  static constexpr int STAGE = A_BYTES + 2 * BOX;    // + 64 d x 128 h
+  static constexpr int STAGES = RING_BYTES / STAGE;  // 6 at MT 1, 4 at MT 2
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+};
+
+template <int MT>
+__global__ void __launch_bounds__(288, 1)
+moe_gemm_wgmma(const __grid_constant__ CUtensorMap mx,
+               const __grid_constant__ CUtensorMap mw,
+               const __grid_constant__ CUtensorMap my, int d) {
+  using Tile = WgTile<MT>;
+  constexpr int STAGES = Tile::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * Tile::STAGE);
+  uint64_t* empty = full + STAGES;
+  const int c0 = blockIdx.x * Tile::BM, n0 = blockIdx.y * WG_BN, e = blockIdx.z;
+  const int nk = (d + WG_BK - 1) / WG_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);       // every consumer warp releases a stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = warpgroup_index();
+  if (wg == 2) {                     // producer warp: one thread issues TMA
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
+        unsigned char* a = ring + s * Tile::STAGE;
+        unsigned char* b = a + Tile::A_BYTES;
+        mbar_expect_tx(&full[s], Tile::STAGE);
+        tma_load_3d(a, &mx, &full[s], kt * WG_BK, c0, e);
+        tma_load_3d(b, &mw, &full[s], n0, kt * WG_BK, e);
+        tma_load_3d(b + BOX, &mw, &full[s], n0 + 64, kt * WG_BK, e);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows c0 + 64 (MT wg + mt) + [0, 64).  The first
+  // product overwrites acc (scale_d 0): an ordinary instruction that wrote
+  // it would make ptxas serialize the products in flight
+  float acc[MT][64];
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const unsigned char* a = ring + s * Tile::STAGE + wg * MT * BOX;
+    const unsigned char* b = ring + s * Tile::STAGE + Tile::A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      // B = w: d rows of 128 bytes of h, the second 64 h a box further
+      const uint64_t bd = wgmma_desc(b + kk * 2048, BOX, 1024);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        wgmma_ss<0, 1>(acc[mt], wgmma_desc(a + mt * BOX + kk * 32, 16, 1024),
+                       bd, kt > 0 || kk > 0);
+    }
+    wgmma_commit();
+    // keep this stage's products in flight; release the previous stage
+    wgmma_wait<1>();
+    if (kt > 0) mbar_arrive_warp(&empty[(kt - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+
+  // epilogue: both warpgroups are done with the ring (the producer issued no
+  // load that was not consumed), so it holds y's tile in bf16, boxes of 64
+  // rows x 64 h, each written by a TMA store that clips at C and h
+  named_barrier(1, 256);
+  unsigned char* out = ring + wg * MT * 2 * BOX;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int row = 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < WG_BN / 8; ++j) {
+      unsigned char* box = out + (2 * mt + j / 8) * BOX;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<uint32_t*>(box + swz128(row + 8 * i, j % 8) +
+                                     4 * (lane & 3)) =
+            pack_bf16(acc[mt][4 * j + 2 * i], acc[mt][4 * j + 2 * i + 1]);
+    }
+  }
+  fence_proxy_async();
+  named_barrier(2 + wg, 128);
+  if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        tma_store_3d(&my, out + (2 * mt + half) * BOX, n0 + 64 * half,
+                     c0 + 64 * (MT * wg + mt), e);
+    tma_store_wait();
+  }
+}
+
+// C <= 64: y[e]^T (h x C) = w[e]^T (h x d) x[e]^T (d x C), C padded to NC
+constexpr int T_STAGES = 8;
+
+template <int NC> struct WgTileT {
+  static constexpr int B_BYTES = NC * 128;           // NC rows of C x 64 d
+  static constexpr int STAGE = BOX + B_BYTES;        // + 64 d x 64 h
+  static constexpr size_t SMEM = 1024 + T_STAGES * STAGE + 2 * T_STAGES * 8;
+};
+
+template <int NC>
+__global__ void __launch_bounds__(160)
+moe_gemm_wgmma_t(const __grid_constant__ CUtensorMap mx,
+                 const __grid_constant__ CUtensorMap mw, bf16* __restrict__ y,
+                 int C, int d, int h) {
+  using Tile = WgTileT<NC>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T_STAGES * Tile::STAGE);
+  uint64_t* empty = full + T_STAGES;
+  const int h0 = blockIdx.x * 64, e = blockIdx.y;
+  const int nk = (d + WG_BK - 1) / WG_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warpgroup_index() == 1) {      // producer warp
+    if (threadIdx.x == 128) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % T_STAGES;
+        if (kt >= T_STAGES) mbar_wait(&empty[s], (kt / T_STAGES - 1) & 1);
+        unsigned char* a = ring + s * Tile::STAGE;
+        mbar_expect_tx(&full[s], Tile::STAGE);
+        tma_load_3d(a, &mw, &full[s], h0, kt * WG_BK, e);
+        tma_load_3d(a + BOX, &mx, &full[s], kt * WG_BK, 0, e);
+      }
+    }
+    return;
+  }
+
+  float acc[NC / 2];                 // overwritten by the first product
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % T_STAGES;
+    mbar_wait(&full[s], (kt / T_STAGES) & 1);
+    const unsigned char* a = ring + s * Tile::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk)   // A = w^T: MN-major
+      wgmma_ss<1, 0>(acc, wgmma_desc(a + kk * 2048, BOX, 1024),
+                     wgmma_desc(a + BOX + kk * 32, 16, 1024), kt > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (kt > 0) mbar_arrive_warp(&empty[(kt - 1) % T_STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // accumulator element 4 j + 2 i + c: h row h0 + 16 warp + lane / 4 + 8 i,
+  // C column 8 j + 2 (lane % 4) + c
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int hr = h0 + 16 * warp + (lane >> 2) + 8 * i;
+    if (hr >= h) continue;
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int cc = 8 * j + 2 * (lane & 3) + c;
+        if (cc < C)
+          y[((int64_t)e * C + cc) * h + hr] = __float2bfloat16_rn(acc[4 * j + 2 * i + c]);
+      }
+  }
+}
+
+// x (d, C, E) and w (h, d, E) as 3-D tensor maps, innermost first
+cudaError_t make_maps(CUtensorMap* mx, CUtensorMap* mw, const void* x,
+                      const void* w, int E, int C, int d, int h,
+                      uint32_t x_rows) {
+  const uint64_t xd[3] = {(uint64_t)d, (uint64_t)C, (uint64_t)E};
+  const uint64_t xs[2] = {2ull * d, 2ull * C * d};
+  const uint32_t xb[3] = {64, x_rows, 1};
+  const uint64_t wd[3] = {(uint64_t)h, (uint64_t)d, (uint64_t)E};
+  const uint64_t ws[2] = {2ull * h, 2ull * d * h};
+  const uint32_t wb[3] = {64, 64, 1};
+  cudaError_t err = make_map_bf16(mx, 3, x, xd, xs, xb);
+  return err != cudaSuccess ? err : make_map_bf16(mw, 3, w, wd, ws, wb);
+}
+
+template <int MT>
+cudaError_t launch_wgmma(const void* x, const void* w, void* y, int E, int C,
+                         int d, int h, cudaStream_t s) {
+  const size_t smem = WgTile<MT>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(    // once per instance
+      moe_gemm_wgmma<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap mx, mw, my;
+  cudaError_t err = make_maps(&mx, &mw, x, w, E, C, d, h, WgTile<MT>::BM);
+  if (err != cudaSuccess) return err;
+  const uint64_t yd[3] = {(uint64_t)h, (uint64_t)C, (uint64_t)E};
+  const uint64_t ys[2] = {2ull * h, 2ull * C * h};
+  const uint32_t yb[3] = {64, 64, 1};
+  if ((err = make_map_bf16(&my, 3, y, yd, ys, yb)) != cudaSuccess) return err;
+  // the C-tiles of one (h-tile, expert) are neighbours: one weight tile in L2
+  const dim3 grid((C + WgTile<MT>::BM - 1) / WgTile<MT>::BM,
+                  (h + WG_BN - 1) / WG_BN, E);
+  moe_gemm_wgmma<MT><<<grid, 288, smem, s>>>(mx, mw, my, d);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_wgmma_t(const void* x, const void* w, void* y, int E, int C,
+                           int d, int h, cudaStream_t s) {
+  const size_t smem = WgTileT<NC>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(    // once per instance
+      moe_gemm_wgmma_t<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap mx, mw;
+  cudaError_t err = make_maps(&mx, &mw, x, w, E, C, d, h, NC);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((h + 63) / 64, E);
+  moe_gemm_wgmma_t<NC><<<grid, 160, smem, s>>>(mx, mw, static_cast<bf16*>(y),
+                                               C, d, h);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_wgmma(const void* x, const void* w, void* y, int E, int C,
+                           int d, int h, cudaStream_t s) {
+  if (C <= 8) return launch_wgmma_t<8>(x, w, y, E, C, d, h, s);
+  if (C <= 16) return launch_wgmma_t<16>(x, w, y, E, C, d, h, s);
+  if (C <= 32) return launch_wgmma_t<32>(x, w, y, E, C, d, h, s);
+  if (C <= 64) return launch_wgmma_t<64>(x, w, y, E, C, d, h, s);
+  if (C <= 128) return launch_wgmma<1>(x, w, y, E, C, d, h, s);
+  return launch_wgmma<2>(x, w, y, E, C, d, h, s);
 }
 
 }  // namespace
@@ -327,22 +483,26 @@ bool aligned16(const void* p) {
 EXPORT_ERROR_STRING
 
 // x (E, C, d), w (E, d, h), y (E, C, h): contiguous, all of one dtype.
+// path: the kernel to launch, as the Python wrapper chose it: kPathSimt for
+// fp32; for bf16 kPathWgmma where TMA can read x and w (d > 0, d and h
+// multiples of 8, 16-byte aligned pointers), else kPathWmma.  Inputs that
+// kernel cannot take return cudaErrorInvalidValue (for wgmma, the tensor
+// maps' encoding refuses them).
 extern "C" int moe_gemm_fwd(const void* x, const void* w, void* y, int dtype,
-                            int E, int C, int d, int h, void* stream) {
+                            int E, int C, int d, int h, void* stream,
+                            int path) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (E <= 0 || C <= 0 || h <= 0 || d < 0) return cudaErrorInvalidValue;
-  if (dtype == kFloat32) {
+  if (path == kPathSimt && dtype == kFloat32) {
     const dim3 grid((C + S_BM - 1) / S_BM, (h + S_BN - 1) / S_BN, E);
     moe_gemm_simt<float><<<grid, S_THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<float*>(y), C, d, h);
     return cudaGetLastError();
   }
-  if (dtype == kBFloat16) {
-    const bool vec = d % 8 == 0 && h % 8 == 0 && aligned16(x) && aligned16(w) &&
-                     aligned16(y);
-    return vec ? dispatch_tc<true>(x, w, y, E, C, d, h, s)
-               : dispatch_tc<false>(x, w, y, E, C, d, h, s);
-  }
+  if (path == kPathWgmma && dtype == kBFloat16 && d > 0)
+    return dispatch_wgmma(x, w, y, E, C, d, h, s);
+  if (path == kPathWmma && dtype == kBFloat16)
+    return dispatch_tc(x, w, y, E, C, d, h, s);
   return cudaErrorInvalidValue;
 }

@@ -50,6 +50,147 @@ def _close(a, b, tol, atol=None):
                                atol=tol if atol is None else atol, rtol=tol)
 
 
+def _path(fn, call):
+    """call() and the one path of ``fn`` it launched (launches_by_path)."""
+    before = dict(fn.launches_by_path)
+    out = call()
+    moved = {k: n - before[k] for k, n in fn.launches_by_path.items()
+             if n != before[k]}
+    assert len(moved) == 1 and list(moved.values()) == [1], moved
+    return out, next(iter(moved))
+
+
+def _flash_case(cuda, B, Sq, Sk, H, kvH, D, seed=0, **kw):
+    """bf16 inputs; the kernel (asserting the wgmma path) and the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, Sk, kvH, D, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    mask = kw.pop("mask", None)
+    out, path = _path(flash_attention_fwd,
+                      lambda: flash_attention_fwd(q, k, v, mask, **kw))
+    assert path == "wgmma"
+    _close(out, flash_attention_ref(q, k, v, mask, **kw), TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 512, 777])
+def test_flash_wgmma_sequence_edges(cuda, S, D, causal):
+    """Lengths around the 64-row warpgroup, the 128-query block and the
+    64-key tile: TMA zero-fills past S inside each (b, h), the -inf of keys
+    past Sk, the store clipped at Sq."""
+    _flash_case(cuda, 2, S, S, 4, 2, D, causal=causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Sq, Sk, window", [(1, 129, 0), (65, 193, 0),
+                                            (64, 512, 0), (130, 777, 32),
+                                            (63, 100, 16)])
+def test_flash_wgmma_query_offset(cuda, Sq, Sk, window, D):
+    """Queries at the end of a longer key range (q_offset = Sk - Sq), causal,
+    with and without a window."""
+    _flash_case(cuda, 2, Sq, Sk, 8, 2, D, causal=True, window=window,
+                q_offset=Sk - Sq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_wgmma_window(cuda, causal, D):
+    _flash_case(cuda, 2, 300, 300, 4, 2, D, causal=causal, window=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_mask_with_fully_masked_rows(cuda, D):
+    """Rows with no valid key average V uniformly (-1e30, not -inf), as the
+    reference does; keys past Sk still weigh 0."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    mask = torch.rand(150, 150, generator=g, device=cuda) < 0.5
+    mask[[0, 7, 64, 149]] = False
+    _flash_case(cuda, 2, 150, 150, 4, 4, D, causal=False, mask=mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvH", [8, 4, 2, 1])
+def test_flash_wgmma_gqa_groups(cuda, kvH):
+    """GQA groups 1, 2, 4 and 8: the kv head is h / group, never repeated."""
+    _flash_case(cuda, 2, 200, 200, 8, kvH, 128, causal=True)
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_reads_fused_projection_and_transposed_views(cuda):
+    """q, k, v as views of one (B, S, (H + 2 kvH) D) projection, and as
+    (B, H, S, D) tensors transposed: read in place through their strides."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, S, H, kvH, D = 2, 200, 8, 2, 128
+    f = torch.randn(B, S, (H + 2 * kvH) * D, generator=g,
+                    device=cuda).bfloat16()
+    q = f[..., :H * D].view(B, S, H, D)
+    k = f[..., H * D:(H + kvH) * D].view(B, S, kvH, D)
+    v = f[..., (H + kvH) * D:].view(B, S, kvH, D)
+    for args in ((q, k, v), tuple(t.transpose(1, 2).contiguous()
+                                  .transpose(1, 2) for t in (q, k, v))):
+        out, path = _path(flash_attention_fwd,
+                          lambda: flash_attention_fwd(*args, causal=True))
+        assert path == "wgmma"
+        _close(out, flash_attention_ref(*args, causal=True),
+               TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_raises_on_strides_tma_refuses(cuda):
+    """A sequence stride 8 bytes past a multiple of 16: raise, launch
+    nothing."""
+    f = torch.zeros(2, 64, 6 * 64 + 4, device=cuda, dtype=torch.bfloat16)
+    q = f[..., :4 * 64].view(2, 64, 4, 64)
+    k = f[..., 4 * 64:5 * 64].view(2, 64, 1, 64)
+    n = dict(flash_attention_fwd.launches_by_path)
+    with pytest.raises(ValueError, match="cannot be read by TMA"):
+        flash_attention_fwd(q, k, k, causal=True)
+    assert flash_attention_fwd.launches_by_path == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["up", "down"])
+@pytest.mark.parametrize("E", [1, 64])
+@pytest.mark.parametrize("C", [1, 8, 9, 63, 64, 65, 128, 240])
+def test_moe_gemm_wgmma_edges(cuda, C, E, form):
+    """Capacities around wgmma's N of 8 (decode, A and B swapped) and the
+    128- and 256-row C-tiles (prefill); d and h multiples of 8 but not of
+    64, zero-filled by TMA past d and C inside each expert; both forms of
+    the block's contractions (wg / wu: d -> h, wd: h -> d)."""
+    d, h = (72, 136) if form == "up" else (136, 72)
+    g = torch.Generator(device=cuda).manual_seed(C)
+    x = torch.randn(E, C, d, generator=g, device=cuda).bfloat16()
+    w = torch.randn(E, d, h, generator=g, device=cuda).bfloat16()
+    y, path = _path(moe_gemm_fwd, lambda: moe_gemm_fwd(x, w))
+    assert path == "wgmma" and y.shape == (E, C, h)
+    _close(y, moe_gemm_ref(x, w), TOL[torch.bfloat16],
+           atol=TOL[torch.bfloat16] * d ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdw", [((3, 37, 100), (3, 100, 48), "wmma"),
+                                 ((3, 37, 96), (3, 96, 45), "wmma"),
+                                 ((3, 37, 96), (3, 96, 48), "simt")])
+def test_moe_gemm_keeps_old_kernels_for_what_tma_cannot_read(cuda, xdw):
+    """d or h not a multiple of 8 (bf16) take the element-wise wmma kernel;
+    fp32 the CUDA-core kernel."""
+    xs, ws, want = xdw
+    dt = torch.float32 if want == "simt" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(xs, generator=g, device=cuda).to(dt)
+    w = torch.randn(ws, generator=g, device=cuda).to(dt)
+    y, path = _path(moe_gemm_fwd, lambda: moe_gemm_fwd(x, w))
+    assert path == want
+    _close(y, moe_gemm_ref(x, w), TOL[dt], atol=TOL[dt] * xs[2] ** 0.5)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

@@ -7,6 +7,9 @@ card in tests/test_torch_cuda.py, which imports no JAX).  Tolerances are the JAX
 own (tests/test_kernels.py): fp32 2e-5, bf16 2e-2; the grouped GEMM's atol
 grows with the contraction depth as sqrt(d).
 """
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,11 +21,15 @@ from repro.kernels.moe_gemm import moe_gemm as pallas_moe_gemm
 from repro.kernels.moe_gemm import moe_gemm_ref as jax_moe_gemm_ref
 from repro.kernels.rmsnorm import rmsnorm as pallas_rms
 from repro.kernels.rmsnorm import rmsnorm_ref as jax_rms_ref
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_fwd,
+                                                        flash_path)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.moe_gemm import moe_gemm
-from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd
+from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd, moe_gemm_path
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
 
@@ -112,6 +119,135 @@ def test_flash_kernel_wrapper_rejects_cpu_tensors():
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(q, q, q, causal=True)
+
+
+def _offset(shape, dtype, elems):
+    """A tensor of ``shape`` whose storage starts ``elems`` elements in."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + elems, dtype=dtype)[elems:].view(shape)
+
+
+def _fused_qkv(B, S, H, kvH, D, dtype=torch.bfloat16, pad=0):
+    """q, k, v as views of one (B, S, (H + 2 kvH) D + pad) projection."""
+    f = torch.zeros(B, S, (H + 2 * kvH) * D + pad, dtype=dtype)
+    q = f[..., :H * D].view(B, S, H, D)
+    k = f[..., H * D:(H + kvH) * D].view(B, S, kvH, D)
+    v = f[..., (H + kvH) * D:(H + 2 * kvH) * D].view(B, S, kvH, D)
+    return q, k, v
+
+
+BF = torch.bfloat16
+FLASH_PATHS = {   # name: (q, k, v), the kernel that takes them
+    "bf16 D128": (lambda: [torch.zeros(2, 64, h, 128, dtype=BF)
+                           for h in (8, 2, 2)], "wgmma"),
+    "bf16 D64": (lambda: [torch.zeros(2, 64, h, 64, dtype=BF)
+                          for h in (4, 4, 4)], "wgmma"),
+    "bf16 D32": (lambda: [torch.zeros(2, 64, 4, 32, dtype=BF)] * 3, "simt"),
+    "bf16 D16": (lambda: [torch.zeros(2, 64, 4, 16, dtype=BF)] * 3, "simt"),
+    "fp32 D128": (lambda: [torch.zeros(2, 64, 4, 128)] * 3, "simt"),
+    "fp32 D128 unaligned": (lambda: [_offset((2, 64, 4, 128),
+                                             torch.float32, 1)] * 3, "simt"),
+    "bf16 fused qkv view": (lambda: _fused_qkv(2, 64, 8, 2, 128), "wgmma"),
+    "bf16 one token, one batch": (lambda: [torch.zeros(1, 1, 4, 64,
+                                                       dtype=BF)] * 3,
+                                  "wgmma"),
+    "bf16 transposed heads": (lambda: [torch.zeros(2, 4, 64, 128, dtype=BF)
+                                       .transpose(1, 2)] * 3, "wgmma"),
+    "bf16 unaligned base": (lambda: [_offset((2, 64, 4, 128), BF, 4)] * 3,
+                            ValueError),
+    "bf16 q unaligned, k v aligned": (
+        lambda: [_offset((2, 64, 4, 64), BF, 1)]
+        + [torch.zeros(2, 64, 4, 64, dtype=BF)] * 2, ValueError),
+    "bf16 seq stride of 8 bytes past 16": (
+        lambda: _fused_qkv(2, 64, 4, 2, 64, pad=4), ValueError),
+    "bf16 D not unit-stride": (lambda: [torch.zeros(2, 64, 128, 4, dtype=BF)
+                                        .transpose(2, 3)] * 3, ValueError),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_PATHS))
+def test_flash_path_by_dtype_head_size_and_layout(case):
+    """bf16 with D 64 or 128 goes to the wgmma kernel, which TMA feeds (a
+    16-byte aligned base, strides of whole 16 bytes, unit stride on D; a
+    size-1 dim's stride is never read); the rest to the CUDA-core kernel;
+    bf16 inputs TMA cannot read raise instead of going elsewhere."""
+    make, want = FLASH_PATHS[case]
+    q, k, v = make()
+    if want is ValueError:
+        with pytest.raises(ValueError, match="cannot be read by TMA"):
+            flash_path(q, k, v)
+    else:
+        assert flash_path(q, k, v) == want
+
+
+MOE_PATHS = {     # name: (x, w), the kernel that takes them
+    "bf16 aligned": (lambda: (torch.zeros(4, 8, 64, dtype=BF),
+                              torch.zeros(4, 64, 24, dtype=BF)), "wgmma"),
+    "bf16 prefill capacity": (lambda: (torch.zeros(2, 240, 72, dtype=BF),
+                                       torch.zeros(2, 72, 136, dtype=BF)),
+                              "wgmma"),
+    "bf16 d not a multiple of 8": (lambda: (torch.zeros(2, 8, 100, dtype=BF),
+                                            torch.zeros(2, 100, 64,
+                                                        dtype=BF)), "wmma"),
+    "bf16 h not a multiple of 8": (lambda: (torch.zeros(2, 8, 64, dtype=BF),
+                                            torch.zeros(2, 64, 45,
+                                                        dtype=BF)), "wmma"),
+    "bf16 d = 0": (lambda: (torch.zeros(2, 8, 0, dtype=BF),
+                            torch.zeros(2, 0, 64, dtype=BF)), "wmma"),
+    "bf16 x unaligned": (lambda: (_offset((2, 8, 64), BF, 4),
+                                  torch.zeros(2, 64, 64, dtype=BF)), "wmma"),
+    "bf16 w unaligned": (lambda: (torch.zeros(2, 8, 64, dtype=BF),
+                                  _offset((2, 64, 64), BF, 2)), "wmma"),
+    "fp32": (lambda: (torch.zeros(2, 8, 64), torch.zeros(2, 64, 64)), "simt"),
+}
+
+
+@pytest.mark.parametrize("case", list(MOE_PATHS))
+def test_moe_gemm_path_by_dtype_shape_and_alignment(case):
+    """Aligned bf16 with d and h multiples of 8 goes to the wgmma kernel
+    (TMA's rules), other bf16 to the element-wise wmma kernel, fp32 to the
+    CUDA-core kernel."""
+    make, want = MOE_PATHS[case]
+    assert moe_gemm_path(*make()) == want
+
+
+def test_path_codes_match_the_c_enum():
+    """_build.PATHS[i] is the kernel that code i asks the entry points for
+    (enum Path of csrc/common.cuh)."""
+    src = (_build.CSRC / "common.cuh").read_text()
+    enum = re.search(r"enum Path : int \{([^}]*)\}", src).group(1)
+    codes = {name.strip()[len("kPath"):].lower(): int(code)
+             for name, code in re.findall(r"(\w+)\s*=\s*(\d+)", enum)}
+    assert codes == {name: i for i, name in enumerate(_build.PATHS)}
+
+
+@pytest.mark.parametrize("source,entry,module", [
+    ("flash_attention.cu", "flash_attention_fwd", flash_kernel),
+    ("moe_gemm.cu", "moe_gemm_fwd", moe_kernel)])
+def test_entry_point_takes_the_chosen_path_by_value(source, entry, module):
+    """The C entry point's last parameter is the path the wrapper chose, an
+    int passed by value, and the ctypes binding says so."""
+    src = (_build.CSRC / source).read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
+    assert params.split(",")[-1].split() == ["int", "path"]
+    assert module._ARGTYPES[-1] is ctypes.c_int
+    assert len(module._ARGTYPES) == len(params.split(","))
+
+
+@pytest.mark.parametrize("fn", [flash_attention_fwd, moe_gemm_fwd])
+def test_count_launch_counts_the_path_and_reset_clears(fn):
+    saved = fn.launches, dict(fn.launches_by_path)
+    try:
+        _build.reset_counts(fn)
+        for path in ("wgmma", "wgmma", "simt"):
+            _build.count_launch(fn, path)
+        assert fn.launches == 3
+        assert fn.launches_by_path["wgmma"] == 2
+        assert fn.launches_by_path["simt"] == 1
+        _build.reset_counts(fn)
+        assert fn.launches == 0 and not any(fn.launches_by_path.values())
+    finally:
+        fn.launches, fn.launches_by_path = saved[0], saved[1]
 
 
 # ------------------------------------------------------------------- rmsnorm
