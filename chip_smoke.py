@@ -8,24 +8,31 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 1. the card (nvidia-smi) and the build of every CUDA kernel from csrc/;
 2. each kernel against its plain PyTorch version on the card, at the shapes
    serving gives it and at small edge cases, with the kernel's, the plain
-   version's and one library call's time (CUDA events, L2 flushed); flash
-   attention and the grouped GEMM report which of their kernels each case
-   took (``launches_by_path``: "wgmma" for the Hopper tensor-core kernels,
-   "simt"/"wmma" for the ones kept for fp32 and unaligned inputs); then the
-   host time per call of those two, as the models call them, and of their
-   library calls (host clock, the device left to work off the queue);
+   version's and one library call's time (CUDA events, L2 flushed; for
+   RMSNorm and WKV6 also the kernel kept beside the new one); each case
+   reports which of its wrapper's kernels it took (``launches_by_path``:
+   "wgmma" for the Hopper tensor-core kernels, "vector" for RMSNorm's
+   16-byte-word kernel, "split" for the WKV6 kernels that split the state
+   over blocks and lanes, "simt"/"wmma" for the ones kept for fp32 and
+   inputs those cannot read); then the host time per call of each kernel
+   as the models call it, and of flash's and the GEMM's library calls (host
+   clock, the device left to work off the queue);
 3. full-width, full-depth llama3.1-8b, then deepseek-v3-16b (MoE), then
    rwkv6-3b (attention-free, the WKV6 recurrence; random bf16 weights from
    --seed), each served through ``ServingLoop``: batch 4, prompt 512, 32
    greedy tokens, with every kernel's launch count read over that run
-   alone (every flash and grouped-GEMM launch must take the wgmma path),
+   alone (every flash and grouped-GEMM launch must take the wgmma path,
+   every RMSNorm launch the vector path, every WKV6 launch the split path),
    then timed (host clock) and profiled (device time by kernel, busy
    share);
 4. the kernel path against the plain path at full width: a 2-layer llama
    prefill; deepseek's MoE block alone on one bf16 input; a 2-layer (one
    dense, one MoE) deepseek prefill; a 2-layer rwkv6-3b prefill and decode
    steps;
-5. the JSON line of the kernels, then the JSON line of the device.
+5. the device time alone (torch.profiler, L2 flushed) of RMSNorm and
+   WKV6, the new kernels and the ones kept beside them, after the served
+   runs, whose host timings a profiler session would slow;
+6. the JSON line of the kernels, then the JSON line of the device.
 
 It needs ``src/repro_torch`` beside it, and CUDA; without either it exits
 non-zero and prints no result.
@@ -55,9 +62,11 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa:
 from repro_torch.kernels.moe_gemm import ops as moe_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd  # noqa: E402
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.kernel import wkv6_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref  # noqa: E402
@@ -92,6 +101,9 @@ MAX_FLIPPED_SHARE = 0.5
 WKV_TOL = {torch.float32: (5e-4, 0.0), torch.bfloat16: (5e-2, 2 ** -7)}
 KERNELS = [fa_ops.flash_attention_fwd, rms_ops.rmsnorm_fwd,
            moe_ops.moe_gemm_fwd, wkv_ops.wkv6_fwd]
+# the kernel every served launch of each wrapper must take
+SERVED_PATH = {"flash_attention_fwd": "wgmma", "rmsnorm_fwd": "vector",
+               "moe_gemm_fwd": "wgmma", "wkv6_fwd": "split"}
 # the redesigned kernels' times before their wgmma redesign, by this script
 # on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), at the shapes of phase 2:
 # printed in the log beside this run's times, never in the kernels line
@@ -132,6 +144,36 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in ev) / iters
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time in ms of the one kernel a call of fn() launches
+    (torch.profiler), L2 flushed before each call: the kernel alone, without
+    the gaps around a launch that cuda_ms's events also hold.  A profiler
+    session now and then drops kernel records: one that did not record
+    ``iters`` kernels, each with its time, is run again; after three such
+    sessions the time is not measured (None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cuda_ms(fn, iters=1)                          # warm, and the flush made
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                _FLUSH.zero_()
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and "fill" not in e.key.lower()]
+        if sum(e.count for e in kernels) == iters and \
+                all(e.self_device_time_total > 0 for e in kernels):
+            return sum(e.self_device_time_total for e in kernels) / iters / 1e3
+        log(f"  profiler recorded {[(e.key[:40], e.count) for e in kernels]}"
+            f", not {iters} kernels")
+    log("  device time not measured: the profiler dropped kernels in 3 "
+        "sessions")
+    return None
 
 
 def host_us(fn, iters: int = 50, repeats: int = 5) -> float:
@@ -308,54 +350,114 @@ def flash_checks(g) -> dict:
 def rmsnorm_checks(g) -> dict:
     dev = "cuda"
     log("rmsnorm (kernel vs plain):")
-    cases = [  # (rows, d, x dtype, w dtype, residual)
-        (4, 4096, torch.bfloat16, torch.float32, False),      # decode
-        (2048, 4096, torch.bfloat16, torch.float32, True),    # residual form
-        (4096, 128, torch.bfloat16, torch.float32, False),    # qk-norm width
-        (37, 2560, torch.float32, torch.float32, True),
-        (9, 1000, torch.float32, torch.bfloat16, False),
+
+    def offset(rows, d, dt, elems):
+        """A contiguous (rows, d) tensor whose storage starts ``elems``
+        elements past a 16-byte boundary."""
+        t = torch.randn(rows * d + elems, generator=g, device=dev).to(dt)
+        return t[elems:].view(rows, d)
+
+    cases = [  # (x, w dtype, residual, the path it must take)
+        (lambda: torch.randn(4, 4096, generator=g, device=dev).bfloat16(),
+         torch.float32, False, "vector"),                       # decode
+        (lambda: torch.randn(2048, 4096, generator=g, device=dev).bfloat16(),
+         torch.float32, True, "vector"),                        # residual form
+        (lambda: torch.randn(4096, 128, generator=g, device=dev).bfloat16(),
+         torch.float32, False, "simt"),                         # qk-norm width
+        (lambda: torch.randn(1, 4096, generator=g, device=dev).bfloat16(),
+         torch.bfloat16, True, "vector"),                       # 1 row
+        (lambda: torch.randn(37, 2560, generator=g, device=dev),
+         torch.float32, True, "vector"),
+        (lambda: torch.randn(5, 8192, generator=g, device=dev),
+         torch.bfloat16, True, "vector"),                       # 512 threads
+        (lambda: torch.randn(9, 1000, generator=g, device=dev),
+         torch.bfloat16, False, "simt"),                        # a warp a row
+        (lambda: torch.randn(6, 1032, generator=g, device=dev).bfloat16(),
+         torch.bfloat16, False, "vector"),                      # just wider
+        (lambda: torch.randn(9, 1500, generator=g, device=dev).bfloat16(),
+         torch.float32, True, "simt"),                          # 3000 B rows
+        (lambda: torch.randn(7, 100, generator=g, device=dev),
+         torch.float32, False, "simt"),
+        (lambda: offset(33, 4096, torch.bfloat16, 1),
+         torch.float32, True, "simt"),                          # unaligned
+        (lambda: torch.randn(3, 20000, generator=g, device=dev).bfloat16(),
+         torch.float32, False, "simt"),                         # over 32 KB
     ]
-    for rows, d, dt, wdt, res in cases:
-        x = torch.randn(rows, d, generator=g, device=dev).to(dt)
+    for make, wdt, res, want in cases:
+        x = make()
+        rows, d = x.shape
+        dt = x.dtype
         w = torch.randn(d, generator=g, device=dev).to(wdt)
         if res:
-            r = torch.randn(rows, d, generator=g, device=dev).to(dt)
-            y, s = rmsnorm_fwd(x, w, r)
+            r = offset(rows, d, dt, 0) if x.data_ptr() % 16 == 0 else \
+                offset(rows, d, dt, 1)
+            (y, s), path = took(rmsnorm_fwd, lambda: rmsnorm_fwd(x, w, r))
             y_ref, s_ref = rmsnorm_ref(x, w, r)
             err = max(max_err(y, y_ref), max_err(s, s_ref))
         else:
-            err = max_err(rmsnorm_fwd(x, w), rmsnorm_ref(x, w))
+            y, path = took(rmsnorm_fwd, lambda: rmsnorm_fwd(x, w))
+            err = max_err(y, rmsnorm_ref(x, w))
         check(f"rows {rows} d {d} x {str(dt)[6:]} w {str(wdt)[6:]} "
-              f"residual={res}", err, TOL[dt])
+              f"residual={res} base+{x.data_ptr() % 16}B [{path}]", err,
+              TOL[dt])
+        if path != want:
+            raise AssertionError(f"rows {rows} d {d}: took {path}, not {want}")
 
     # the serving prefill shape: 2048 rows of 4096, bf16, fp32 weight
     x = torch.randn(2048, 4096, generator=g, device=dev).to(torch.bfloat16)
     w = torch.randn(4096, generator=g, device=dev)
-    err = max_err(rmsnorm_fwd(x, w), rmsnorm_ref(x, w))
-    check("main shape 2048x4096 bf16", err, TOL[torch.bfloat16])
+    y, path = took(rmsnorm_fwd, lambda: rmsnorm_fwd(x, w))
+    err = max_err(y, rmsnorm_ref(x, w))
+    check(f"main shape 2048x4096 bf16 [{path}]", err, TOL[torch.bfloat16])
+    if path != "vector":
+        raise AssertionError(f"main shape took the {path} kernel")
     ms = cuda_ms(lambda: rmsnorm_fwd(x, w))
+    simt_ms = cuda_ms(lambda: rms_kernel._launch("simt", x, w))
     plain_ms = cuda_ms(lambda: rmsnorm_ref(x, w))
-    lib_ms = cuda_ms(lambda: F.rms_norm(x, (4096,), w.to(x.dtype), 1e-5))
-    xd = x[:4].clone()
-    dec_ms = cuda_ms(lambda: rmsnorm_fwd(xd, w))
+    wl = w.to(x.dtype)
+    lib_ms = cuda_ms(lambda: F.rms_norm(x, (4096,), wl, 1e-5))
     nbytes = 2 * x.numel() * 2 + w.numel() * 4
     b_ms, b_by = bound(nbytes, 4 * x.numel(), torch.bfloat16)
-    log(f"  main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"F.rms_norm {lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}: "
-        f"{nbytes / 1e6:.1f} MB); decode shape 4x4096: kernel {dec_ms:.4f} ms")
-    # the residual form (the TPU's _rms_res_kernel) at the same shape
+    log(f"  main shape: kernel {ms:.4f} ms ({ms / lib_ms:.2f}x F.rms_norm), "
+        f"scalar kernel {simt_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}: {nbytes / 1e6:.1f} MB); {CARD}")
+    # the decode shape: 4 rows of 4096
+    xd = x[:4].clone()
+    dec_ms = cuda_ms(lambda: rmsnorm_fwd(xd, w))
+    dec_simt = cuda_ms(lambda: rms_kernel._launch("simt", xd, w))
+    dec_plain = cuda_ms(lambda: rmsnorm_ref(xd, w))
+    dec_lib = cuda_ms(lambda: F.rms_norm(xd, (4096,), wl, 1e-5))
+    dec_bound, dec_by = bound(2 * xd.numel() * 2 + w.numel() * 4,
+                              4 * xd.numel(), torch.bfloat16)
+    log(f"  decode shape 4x4096: kernel {dec_ms:.4f} ms, scalar kernel "
+        f"{dec_simt:.4f} ms, plain "
+        f"{dec_plain:.4f} ms, F.rms_norm {dec_lib:.4f} ms, bound "
+        f"{dec_bound * 1e3:.3f} us ({dec_by})")
+    # the residual form (the TPU's _rms_res_kernel) at the main shape
     r = torch.randn(2048, 4096, generator=g, device=dev).to(torch.bfloat16)
+    (_, _), r_path = took(rmsnorm_fwd, lambda: rmsnorm_fwd(x, w, r))
     r_ms = cuda_ms(lambda: rmsnorm_fwd(x, w, r))
+    r_simt = cuda_ms(lambda: rms_kernel._launch("simt", x, w, r))
     r_plain = cuda_ms(lambda: rmsnorm_ref(x, w, r))
     r_bound, r_by = bound(4 * x.numel() * 2 + w.numel() * 4, 5 * x.numel(),
                           torch.bfloat16)
-    log(f"  residual form: kernel {r_ms:.4f} ms, plain {r_plain:.4f} ms, "
-        f"bound {r_bound * 1e3:.2f} us ({r_by})")
-    return dict(name="rmsnorm", route="cuda",
-                source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-                replaces="src/repro/kernels/rmsnorm/kernel.py:34",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+    log(f"  residual form: kernel {r_ms:.4f} ms [{r_path}], scalar kernel "
+        f"{r_simt:.4f} ms, plain "
+        f"{r_plain:.4f} ms, no library call, bound {r_bound * 1e3:.2f} us "
+        f"({r_by})")
+    row = dict(name="rmsnorm", route="cuda",
+               source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+               replaces="src/repro/kernels/rmsnorm/kernel.py:34",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, decode_ms=dec_ms,
+               decode_plain_ms=dec_plain, decode_bound_ms=dec_bound,
+               decode_bound_by=dec_by, decode_library_ms=dec_lib,
+               residual_ms=r_ms, residual_plain_ms=r_plain,
+               residual_bound_ms=r_bound, residual_library_ms=None,
+               simt_ms=simt_ms, decode_simt_ms=dec_simt,
+               residual_simt_ms=r_simt)
+    return row
 
 
 def moe_gemm_checks(g) -> dict:
@@ -418,10 +520,12 @@ def moe_gemm_checks(g) -> dict:
 
 
 def host_costs(g) -> dict:
-    """Host us per call of flash attention and the grouped GEMM as the models
-    call them (``ops``), and of their library calls, at phase 2's main
-    shapes.  It uses only what every version of the port has, so that
-    ``--host-only`` can time an older checkout's wrappers the same way."""
+    """Host us per call of each kernel as the models call it (``ops``), and
+    of flash's and the GEMM's library calls: flash and the GEMM at phase 2's
+    main shapes, RMSNorm and WKV6 at their decode shapes (where the host, not
+    the kernel, sets a step's time).  It uses only what every version of the
+    port has, so that ``--host-only`` can time an older checkout's wrappers
+    the same way."""
     dev, dt = "cuda", torch.bfloat16
     q = torch.randn(4, 512, 32, 128, generator=g, device=dev).to(dt)
     k, v = (torch.randn(4, 512, 8, 128, generator=g, device=dev).to(dt)
@@ -437,57 +541,87 @@ def host_costs(g) -> dict:
         x = torch.randn(64, C, 2048, generator=g, device=dev).to(dt)
         moe[pre + "host_us"] = host_us(lambda: moe_ops.moe_gemm(x, w))
         moe[pre + "library_host_us"] = host_us(lambda: torch.bmm(x, w))
+    xd = torch.randn(4, 4096, generator=g, device=dev).to(dt)
+    wd = torch.randn(4096, generator=g, device=dev)
+    rms = dict(decode_host_us=host_us(lambda: rms_ops.rmsnorm(xd, wd)))
+    r1, k1, v1 = (torch.randn(4, 1, 40, 64, generator=g, device=dev).to(dt)
+                  for _ in range(3))
+    w1 = -torch.exp(torch.randn(4, 1, 40, 64, generator=g, device=dev))
+    u1 = torch.randn(40, 64, generator=g, device=dev)
+    s1 = torch.randn(4, 40, 64, 64, generator=g, device=dev)
+    wkv = dict(decode_host_us=host_us(
+        lambda: wkv_ops.wkv6(r1, k1, v1, w1, u1, s1)))
     log(f"host us per call: flash {flash['host_us']:.2f} (sdpa "
         f"{flash['library_host_us']:.2f}); grouped GEMM prefill "
         f"{moe['host_us']:.2f} (torch.bmm {moe['library_host_us']:.2f}), "
         f"decode {moe['decode_host_us']:.2f} (torch.bmm "
-        f"{moe['decode_library_host_us']:.2f}); {CARD}")
-    return {"flash_attention": flash, "moe_gemm": moe}
+        f"{moe['decode_library_host_us']:.2f}); decode RMSNorm "
+        f"{rms['decode_host_us']:.2f}, WKV6 {wkv['decode_host_us']:.2f}; "
+        f"{CARD}")
+    return {"flash_attention": flash, "moe_gemm": moe, "rmsnorm": rms,
+            "wkv6": wkv}
+
+
+def wkv_inputs(g, B, S, H, D, dt, state):
+    """As tests/test_kernels.py draws them: r, k, v ~ 0.5 N(0,1), w_log =
+    -exp(N(0,1)) fp32, u ~ N(0,1); a state ~ 0.5 N(0,1)."""
+    r, k, v = (0.5 * torch.randn(B, S, H, D, generator=g, device="cuda")
+               for _ in range(3))
+    w = -torch.exp(torch.randn(B, S, H, D, generator=g, device="cuda"))
+    u = torch.randn(H, D, generator=g, device="cuda")
+    s0 = (0.5 * torch.randn(B, H, D, D, generator=g, device="cuda")
+          if state else None)
+    return r.to(dt), k.to(dt), v.to(dt), w, u, s0
 
 
 def wkv6_checks(g) -> dict:
-    dev = "cuda"
     log("wkv6 (kernel vs plain):")
 
     def inputs(B, S, H, D, dt, state):
-        """As tests/test_kernels.py draws them: r, k, v ~ 0.5 N(0,1),
-        w_log = -exp(N(0,1)) fp32, u ~ N(0,1); a state ~ 0.5 N(0,1)."""
-        r, k, v = (0.5 * torch.randn(B, S, H, D, generator=g, device=dev)
-                   for _ in range(3))
-        w = -torch.exp(torch.randn(B, S, H, D, generator=g, device=dev))
-        u = torch.randn(H, D, generator=g, device=dev)
-        s0 = (0.5 * torch.randn(B, H, D, D, generator=g, device=dev)
-              if state else None)
-        return r.to(dt), k.to(dt), v.to(dt), w, u, s0
+        return wkv_inputs(g, B, S, H, D, dt, state)
 
-    def check_wkv(name, args) -> float:
-        """y against atol + rtol |y_ref|, the fp32 state against atol."""
+    def check_wkv(name, args) -> tuple:
+        """y against atol + rtol |y_ref|, the fp32 state against atol;
+        returns the larger error and the path the kernel took."""
         atol, rtol = WKV_TOL[args[0].dtype]
-        (y, s), (y_ref, s_ref) = wkv6_fwd(*args), wkv6_ref(*args)
-        err = check_close(name + ", y", y, y_ref, atol, rtol)
+        (y, s), path = took(wkv6_fwd, lambda: wkv6_fwd(*args))
+        y_ref, s_ref = wkv6_ref(*args)
+        err = check_close(f"{name} [{path}], y", y, y_ref, atol, rtol)
         s_err = max_err(s, s_ref)
-        check(name + ", state", s_err, atol)
-        return max(err, s_err)
+        check(f"{name} [{path}], state", s_err, atol)
+        return max(err, s_err), path
 
-    cases = [  # (B, S, H, D, dtype, given state): D 16, ragged S, fp32
-        (2, 130, 3, 16, torch.float32, False),
-        (2, 130, 3, 16, torch.bfloat16, True),
-        (2, 77, 5, 32, torch.bfloat16, True),
-        (3, 64, 4, 64, torch.float32, True),
-        (1, 1, 8, 64, torch.float32, False),
-    ]
-    for B, S, H, D, dt, state in cases:
-        check_wkv(f"B{B} S{S} H{H} D{D} {str(dt)[6:]} state={state}",
-                  inputs(B, S, H, D, dt, state))
+    # every head size, dtype and initial state at S 1, 17, 130 (a partial
+    # last chunk) and 512, each at H 3 and 5
+    for S in (1, 17, 130, 512):
+        for D in (16, 32, 64):
+            for dt in (torch.float32, torch.bfloat16):
+                for state in (False, True):
+                    for B, H in ((2, 3), (3, 5)):
+                        _, path = check_wkv(
+                            f"B{B} S{S} H{H} D{D} {str(dt)[6:]} "
+                            f"state={state}", inputs(B, S, H, D, dt, state))
+                        if path != "split":
+                            raise AssertionError(f"took the {path} kernel")
+    # a base off the 16-byte grid: the one-column-a-thread kernel
+    r, k, v, w, u, s0 = inputs(2, 77, 5, 64, torch.bfloat16, True)
+    r = torch.cat([r.new_zeros(1), r.flatten()])[1:].view(r.shape)
+    _, path = check_wkv("B2 S77 H5 D64 bf16 state=True, r unaligned",
+                        (r, k, v, w, u, s0))
+    if path != "simt":
+        raise AssertionError(f"unaligned r took the {path} kernel, not simt")
 
     # the serving shapes: prefill from zero state, decode from a state
     row = None
     for what, S, state in (("prefill", 512, False), ("decode", 1, True)):
         B, H, D, dt = 4, 40, 64, torch.bfloat16
         args = inputs(B, S, H, D, dt, state)
-        err = check_wkv(f"{what} shape B{B} S{S} H{H} D{D} bf16 "
-                        f"state={state}", args)
+        err, path = check_wkv(f"{what} shape B{B} S{S} H{H} D{D} bf16 "
+                              f"state={state}", args)
+        if path != "split":
+            raise AssertionError(f"{what} shape took the {path} kernel")
         ms = cuda_ms(lambda: wkv6_fwd(*args))
+        simt_ms = cuda_ms(lambda: wkv_kernel._launch("simt", *args))
         plain_ms = cuda_ms(lambda: wkv6_ref(*args), iters=5)
         n = B * S * H * D
         # r, k, v and y in bf16, w_log fp32, u, the state in (if given) and
@@ -497,7 +631,8 @@ def wkv6_checks(g) -> dict:
                   + (1 + state) * B * H * D * D * 4)
         flops = 5 * n * D
         b_ms, b_by = bound(nbytes, flops, torch.float32)
-        log(f"  {what} shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log(f"  {what} shape: kernel {ms:.4f} ms, one-column-a-thread kernel "
+            f"{simt_ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"no library call, bound {b_ms * 1e3:.2f} us ({b_by}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); {CARD}")
         if row is None:
@@ -505,11 +640,13 @@ def wkv6_checks(g) -> dict:
                        source="src/repro_torch/kernels/csrc/wkv6.cu",
                        replaces="src/repro/kernels/rwkv6_wkv/kernel.py:68",
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       simt_ms=simt_ms)
         else:
             row.update(decode_max_abs_err=err, decode_ms=ms,
                        decode_plain_ms=plain_ms, decode_bound_ms=b_ms,
-                       decode_bound_by=b_by, decode_library_ms=None)
+                       decode_bound_by=b_by, decode_library_ms=None,
+                       decode_simt_ms=simt_ms)
     return row
 
 
@@ -581,9 +718,10 @@ def serve(args, arch: str) -> dict:
             raise AssertionError(f"{name}: {launches[name]} launches, "
                                  f"expected {want}")
     for name, paths in by_path.items():    # the Hopper kernels, every time
-        if paths["wgmma"] != launches[name]:
+        if paths[SERVED_PATH[name]] != launches[name]:
             raise AssertionError(f"{name}: {paths} of {launches[name]} "
-                                 f"launches; all must take the wgmma path")
+                                 f"launches; all must take the "
+                                 f"{SERVED_PATH[name]} path")
 
     # timed breakdown on the same model (launches no longer counted)
     tokens = torch.from_numpy(prompts).long().cuda()
@@ -639,7 +777,7 @@ def device_profile(what: str, step_ms: float, fn, top: int = 6) -> None:
     log(f"{what} profile: device busy {busy:.2f} ms of {step_ms:.2f} ms "
         f"({100 * busy / step_ms:.1f}%, idle {100 - 100 * busy / step_ms:.1f}%)"
         f" in {sum(r[1] for r in rows)} kernel launches; {CARD}")
-    ours = ("fa_fwd", "moe_gemm", "rms_kernel", "wkv6_kernel")
+    ours = ("fa_fwd", "moe_gemm", "rms_", "wkv6_")
     for n, (ms, count, key) in enumerate(sorted(rows, reverse=True)):
         if n < top or any(k in key for k in ours):   # and the port's kernels
             log(f"  {ms:8.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  "
@@ -810,6 +948,52 @@ def rwkv_kernel_vs_plain(args, steps: int = 4) -> None:
         raise AssertionError("rwkv6-3b: kernel path and plain path disagree")
 
 
+# --------------------------------------------------------------------------- #
+# Phase 5: device times of the redesigned kernels
+# --------------------------------------------------------------------------- #
+def device_times(g, rows: dict, rounds: int = 3) -> None:
+    """Device time alone (torch.profiler) of the redesigned RMSNorm and WKV6
+    kernels at phase 2's main shapes, of the kernels kept beside them (the
+    ones every call took before), of ``F.rms_norm`` and of the WKV6 decode
+    state's copy (``copy_`` of the state in to the state out: the least a
+    kernel that reads and writes the state takes under this flush), in
+    ``rounds`` alternating rounds, their mean into the rows of the kernels
+    line.  Taken after the served runs, since a profiler session slows the
+    host launches that follow it."""
+    dev, bf = "cuda", torch.bfloat16
+    x = torch.randn(2048, 4096, generator=g, device=dev).to(bf)
+    r = torch.randn(2048, 4096, generator=g, device=dev).to(bf)
+    w = torch.randn(4096, generator=g, device=dev)
+    wl, xd = w.to(bf), x[:4].clone()
+    prefill = wkv_inputs(g, 4, 512, 40, 64, bf, False)
+    decode = wkv_inputs(g, 4, 1, 40, 64, bf, True)
+    s_copy = torch.empty_like(decode[-1])
+    rms, wkv = rows["rmsnorm"], rows["wkv6"]
+    timed = [   # (row, key, fn)
+        (rms, "device_ms", lambda: rmsnorm_fwd(x, w)),
+        (rms, "simt_device_ms", lambda: rms_kernel._launch("simt", x, w)),
+        (rms, "library_device_ms", lambda: F.rms_norm(x, (4096,), wl, 1e-5)),
+        (rms, "decode_device_ms", lambda: rmsnorm_fwd(xd, w)),
+        (rms, "decode_simt_device_ms",
+         lambda: rms_kernel._launch("simt", xd, w)),
+        (rms, "residual_device_ms", lambda: rmsnorm_fwd(x, w, r)),
+        (rms, "residual_simt_device_ms",
+         lambda: rms_kernel._launch("simt", x, w, r)),
+        (wkv, "device_ms", lambda: wkv6_fwd(*prefill)),
+        (wkv, "simt_device_ms", lambda: wkv_kernel._launch("simt", *prefill)),
+        (wkv, "decode_device_ms", lambda: wkv6_fwd(*decode)),
+        (wkv, "decode_simt_device_ms",
+         lambda: wkv_kernel._launch("simt", *decode)),
+        (wkv, "decode_copy_device_ms", lambda: s_copy.copy_(decode[-1])),
+    ]
+    reads = [[device_ms(fn) for _, _, fn in timed] for _ in range(rounds)]
+    for (row, key, _), ms in zip(timed, zip(*reads)):
+        row[key] = None if None in ms else sum(ms) / rounds
+        log(f"{row['name']} {key[:-3]} (torch.profiler, L2 flushed), us: "
+            + ", ".join("not measured" if t is None else f"{t * 1e3:.3f}"
+                        for t in ms) + f"; {CARD}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -842,6 +1026,7 @@ def main(argv=None) -> int:
     moe_kernel_vs_plain(args)
     by_run["rwkv6-3b"] = serve(args, "rwkv6-3b")
     rwkv_kernel_vs_plain(args)
+    device_times(g, {row["name"]: row for row in rows})
     for row, fn in zip(rows, KERNELS):
         name = fn.__name__
         counts = {arch: n[name] for arch, (n, _) in by_run.items()}

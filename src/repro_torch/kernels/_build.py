@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # path codes of csrc/common.cuh: the kernel a wrapper asks its entry point for
-PATHS = ("simt", "wgmma", "wmma")
+PATHS = ("simt", "wgmma", "wmma", "split", "vector")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_log: List[str] = []       # nvcc's output (ptxas register/smem report)

@@ -9,7 +9,9 @@ enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
 // which kernel an entry point launches, chosen by the Python wrapper and
 // passed as its `path` argument (repro_torch.kernels._build.PATHS)
-enum Path : int { kPathSimt = 0, kPathWgmma = 1, kPathWmma = 2 };
+enum Path : int {
+  kPathSimt = 0, kPathWgmma = 1, kPathWmma = 2, kPathSplit = 3, kPathVector = 4
+};
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }

@@ -38,15 +38,17 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims, innermost first: dims[i] elements,
+// A tensor map of `rank` dims of `type`, innermost first: dims[i] elements,
 // strides[i] bytes between neighbours along dim i + 1 (rank - 1 of them),
 // box[i] elements per copy.  Reads past a dim's end are zero, writes past it
 // are dropped.  Returns cudaErrorInvalidValue where TMA cannot take the
 // layout (a base or stride that is not a multiple of 16 bytes, a box row
-// over 128 bytes with 128-byte swizzle).
-inline cudaError_t make_map_bf16(CUtensorMap* map, int rank, const void* base,
-                                 const uint64_t* dims, const uint64_t* strides,
-                                 const uint32_t* box) {
+// that is not a multiple of 16 bytes, or over 128 bytes with 128-byte
+// swizzle).
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
+                            CUtensorMapSwizzle swizzle, int rank,
+                            const void* base, const uint64_t* dims,
+                            const uint64_t* strides, const uint32_t* box) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t d[5], s[4];
@@ -58,10 +60,18 @@ inline cudaError_t make_map_bf16(CUtensorMap* map, int rank, const void* base,
     if (i + 1 < rank) s[i] = strides[i];
   }
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d,
-      s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      map, type, rank, const_cast<void*>(base), d, s, b, e,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a bf16 map whose boxes land in shared memory in the 128-byte swizzle
+inline cudaError_t make_map_bf16(CUtensorMap* map, int rank, const void* base,
+                                 const uint64_t* dims, const uint64_t* strides,
+                                 const uint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  CU_TENSOR_MAP_SWIZZLE_128B, rank, base, dims, strides, box);
 }
 
 // --------------------------------------------------------------- mbarrier
@@ -121,6 +131,17 @@ __device__ __forceinline__ int warpgroup_index() {
 }
 
 // -------------------------------------------------------------------- TMA
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {

@@ -229,18 +229,36 @@ def test_flash_kernel_reads_strided_inputs_and_offsets(cuda):
            flash_attention_ref(q, k, v, **args), TOL[torch.float32])
 
 
+def _offset_randn(shape, dtype, elems, g, device):
+    """randn of ``shape`` in a contiguous view ``elems`` elements into its
+    storage (a base off the 16-byte grid for elems 1)."""
+    n = int(np.prod(shape))
+    t = torch.randn(n + elems, generator=g, device=device).to(dtype)
+    return t[elems:].view(shape)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("shape", [(4, 128), (2, 100, 256), (3, 4096),
-                                   (5, 2560), (2, 3, 1500)])
+                                   (5, 2560), (2, 3, 1500), (1, 4096),
+                                   (2048, 4096)])
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rmsnorm_kernel_matches_plain(cuda, dtype, wdtype, shape):
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, wdtype, shape, offset):
+    """Plain and residual forms; rows wider than 1024 of whole 16-byte words
+    on aligned bases take the vector kernel, the rest (narrow rows, d 1500
+    bf16, a view one element into its storage) the scalar one."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    x, r = (torch.randn(shape, generator=g, device=cuda).to(dtype)
-            for _ in range(2))
+    x, r = (_offset_randn(shape, dtype, offset, g, cuda) for _ in range(2))
     w = torch.randn(shape[-1], generator=g, device=cuda).to(wdtype)
-    _close(rmsnorm_fwd(x, w), rmsnorm_ref(x, w), TOL[dtype])
-    y, res = rmsnorm_fwd(x, w, r)
+    row = shape[-1] * x.element_size()
+    want = "vector" if shape[-1] > 1024 and row % 16 == 0 and not offset \
+        else "simt"
+    y, path = _path(rmsnorm_fwd, lambda: rmsnorm_fwd(x, w))
+    assert path == want
+    _close(y, rmsnorm_ref(x, w), TOL[dtype])
+    (y, res), path = _path(rmsnorm_fwd, lambda: rmsnorm_fwd(x, w, r))
+    assert path == want
     y_ref, res_ref = rmsnorm_ref(x, w, r)
     _close(y, y_ref, TOL[dtype])
     _close(res, res_ref, TOL[dtype])
@@ -292,16 +310,20 @@ def _wkv_inputs(device, B, S, H, D, dtype, state, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("BH", [(2, 3), (3, 5)])
 @pytest.mark.parametrize("state", [False, True])
 @pytest.mark.parametrize("D", [16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [1, 17, 130, 512])
-def test_wkv6_kernel_matches_plain(cuda, S, dtype, D, state):
+def test_wkv6_kernel_matches_plain(cuda, S, dtype, D, state, BH):
     """One token (decode), ragged S (a partial last chunk), the serving
-    prompt; from zero or from a given state."""
-    args = _wkv_inputs(cuda, 2, S, 3, D, dtype, state)
+    prompt; from zero or from a given state; H 3 and 5 with B 2 and 3.
+    Aligned inputs take the split kernel; y and the final state match the
+    plain version."""
+    args = _wkv_inputs(cuda, BH[0], S, BH[1], D, dtype, state)
     s_in = None if args[5] is None else args[5].clone()
-    y, st = wkv6_fwd(*args)
+    (y, st), path = _path(wkv6_fwd, lambda: wkv6_fwd(*args))
+    assert path == "split"
     y_ref, st_ref = wkv6_ref(*args)
     assert y.dtype == dtype and st.dtype == torch.float32
     tol, rtol = (5e-4, 0) if dtype == torch.float32 else (5e-2, 2 ** -7)
@@ -309,6 +331,20 @@ def test_wkv6_kernel_matches_plain(cuda, S, dtype, D, state):
     _close(st, st_ref, 0, atol=tol)
     if s_in is not None:                     # the given state is not written
         assert torch.equal(args[5], s_in)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 77])
+def test_wkv6_unaligned_input_takes_the_column_kernel(cuda, S):
+    """r one element into its storage: the one-column-a-thread kernel, the
+    same y and state."""
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 2, S, 5, 64, torch.bfloat16, True)
+    r = torch.cat([r.new_zeros(1), r.flatten()])[1:].view(r.shape)
+    (y, st), path = _path(wkv6_fwd, lambda: wkv6_fwd(r, k, v, w, u, s0))
+    assert path == "simt"
+    y_ref, st_ref = wkv6_ref(r, k, v, w, u, s0)
+    _close(y, y_ref, 2 ** -7, atol=5e-2)
+    _close(st, st_ref, 0, atol=5e-2)
 
 
 @pytest.mark.cuda

@@ -30,8 +30,11 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.moe_gemm import kernel as moe_kernel
 from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd, moe_gemm_path
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd, rmsnorm_path
+from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel
+from repro_torch.kernels.rwkv6_wkv.kernel import wkv6_fwd, wkv6_path
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -223,7 +226,9 @@ def test_path_codes_match_the_c_enum():
 
 @pytest.mark.parametrize("source,entry,module", [
     ("flash_attention.cu", "flash_attention_fwd", flash_kernel),
-    ("moe_gemm.cu", "moe_gemm_fwd", moe_kernel)])
+    ("moe_gemm.cu", "moe_gemm_fwd", moe_kernel),
+    ("rmsnorm.cu", "rmsnorm_fwd", rms_kernel),
+    ("wkv6.cu", "wkv6_fwd", wkv_kernel)])
 def test_entry_point_takes_the_chosen_path_by_value(source, entry, module):
     """The C entry point's last parameter is the path the wrapper chose, an
     int passed by value, and the ctypes binding says so."""
@@ -234,15 +239,23 @@ def test_entry_point_takes_the_chosen_path_by_value(source, entry, module):
     assert len(module._ARGTYPES) == len(params.split(","))
 
 
-@pytest.mark.parametrize("fn", [flash_attention_fwd, moe_gemm_fwd])
-def test_count_launch_counts_the_path_and_reset_clears(fn):
+@pytest.mark.parametrize("fn,fast", [(flash_attention_fwd, "wgmma"),
+                                     (moe_gemm_fwd, "wgmma"),
+                                     (rmsnorm_fwd, "vector"),
+                                     (wkv6_fwd, "split")])
+def test_count_launch_counts_the_path_and_reset_clears(fn, fast):
+    """Each wrapper counts its launches by path: its Hopper kernel and the
+    CUDA-core kernel kept beside it, every path a code of _build.PATHS."""
+    assert set(fn.launches_by_path) == {fast, "simt"} | (
+        {"wmma"} if fn is moe_gemm_fwd else set())
+    assert set(fn.launches_by_path) <= set(_build.PATHS)
     saved = fn.launches, dict(fn.launches_by_path)
     try:
         _build.reset_counts(fn)
-        for path in ("wgmma", "wgmma", "simt"):
+        for path in (fast, fast, "simt"):
             _build.count_launch(fn, path)
         assert fn.launches == 3
-        assert fn.launches_by_path["wgmma"] == 2
+        assert fn.launches_by_path[fast] == 2
         assert fn.launches_by_path["simt"] == 1
         _build.reset_counts(fn)
         assert fn.launches == 0 and not any(fn.launches_by_path.values())
@@ -273,6 +286,87 @@ def test_rmsnorm_plain_matches_jax(shape, dtype):
 def test_rmsnorm_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm_fwd(torch.zeros(2, 64), torch.ones(64))
+
+
+RMS_PATHS = {     # name: (x, w, residual), the kernel that takes them
+    "bf16 d 4096, fp32 w": (lambda: (torch.zeros(4, 4096, dtype=BF),
+                                     torch.zeros(4096), None), "vector"),
+    "bf16 d 4096, residual": (lambda: (torch.zeros(4, 4096, dtype=BF),
+                                       torch.zeros(4096, dtype=BF),
+                                       torch.zeros(4, 4096, dtype=BF)),
+                              "vector"),
+    "bf16 qk-norm d 128 (a warp a row)": (
+        lambda: (torch.zeros(64, 128, dtype=BF), torch.zeros(128), None),
+        "simt"),
+    "bf16 d 1024 (a warp a row)": (lambda: (torch.zeros(4, 1024, dtype=BF),
+                                            torch.zeros(1024), None), "simt"),
+    "bf16 d 1032": (lambda: (torch.zeros(4, 1032, dtype=BF),
+                             torch.zeros(1032), None), "vector"),
+    "fp32 d 2560": (lambda: (torch.zeros(3, 2560), torch.zeros(2560), None),
+                    "vector"),
+    "fp32 d 2052, bf16 w": (lambda: (torch.zeros(3, 2052),
+                                     torch.zeros(2052, dtype=BF), None),
+                            "vector"),
+    "bf16 d 16384 (32 KB rows)": (lambda: (torch.zeros(1, 16384, dtype=BF),
+                                           torch.zeros(16384), None),
+                                  "vector"),
+    "fp32 d 8196 (over 32 KB)": (lambda: (torch.zeros(1, 8196),
+                                          torch.zeros(8196), None), "simt"),
+    "bf16 d 1500 (3000-byte rows)": (lambda: (torch.zeros(4, 1500, dtype=BF),
+                                              torch.zeros(1500), None),
+                                     "simt"),
+    "fp32 d 1002": (lambda: (torch.zeros(4, 1002), torch.zeros(1002), None),
+                    "simt"),
+    "bf16 x unaligned": (lambda: (_offset((4, 4096), BF, 1), torch.zeros(4096),
+                                  None), "simt"),
+    "bf16 x 8 bytes off": (lambda: (_offset((4, 4096), BF, 4),
+                                    torch.zeros(4096), None), "simt"),
+    "w unaligned": (lambda: (torch.zeros(4, 2048, dtype=BF),
+                             _offset((2048,), torch.float32, 1), None),
+                    "simt"),
+    "residual unaligned": (lambda: (torch.zeros(4, 2048, dtype=BF),
+                                    torch.zeros(2048),
+                                    _offset((4, 2048), BF, 2)), "simt"),
+}
+
+
+@pytest.mark.parametrize("case", list(RMS_PATHS))
+def test_rmsnorm_path_by_width_and_alignment(case):
+    """Rows wider than 1024 of whole 16-byte words, at most 32 KB, on 16-byte
+    aligned bases of x, w and the residual go to the vector kernel; the rest,
+    narrow rows among them, to the scalar kernel."""
+    make, want = RMS_PATHS[case]
+    assert rmsnorm_path(*make()) == want
+
+
+WKV_PATHS = {     # name: (r, k, v, w_log, state), the kernel that takes them
+    "bf16, no state": (lambda: [torch.zeros(2, 5, 3, 64, dtype=BF)] * 3
+                       + [torch.zeros(2, 5, 3, 64), None], "split"),
+    "fp32, state": (lambda: [torch.zeros(2, 5, 3, 32)] * 4
+                    + [torch.zeros(2, 3, 32, 32)], "split"),
+    "one token, D 16": (lambda: [torch.zeros(1, 1, 4, 16, dtype=BF)] * 3
+                        + [torch.zeros(1, 1, 4, 16),
+                           torch.zeros(1, 4, 16, 16)], "split"),
+    "r unaligned": (lambda: [_offset((2, 5, 3, 64), BF, 1)]
+                    + [torch.zeros(2, 5, 3, 64, dtype=BF)] * 2
+                    + [torch.zeros(2, 5, 3, 64), None], "simt"),
+    "w_log unaligned": (lambda: [torch.zeros(2, 5, 3, 64, dtype=BF)] * 3
+                        + [_offset((2, 5, 3, 64), torch.float32, 2), None],
+                        "simt"),
+    "state unaligned": (lambda: [torch.zeros(2, 5, 3, 64)] * 4
+                        + [_offset((2, 3, 64, 64), torch.float32, 1)],
+                        "simt"),
+}
+
+
+@pytest.mark.parametrize("case", list(WKV_PATHS))
+def test_wkv6_path_by_alignment(case):
+    """Inputs whose bases TMA and the 16-byte loads can read go to the
+    split kernel; any base off the 16-byte grid to the one-column-a-thread
+    kernel."""
+    make, want = WKV_PATHS[case]
+    r, k, v, w, state = make()
+    assert wkv6_path(r, k, v, w, state) == want
 
 
 # ------------------------------------------------------------------ moe gemm
