@@ -29,10 +29,25 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    prefill; deepseek's MoE block alone on one bf16 input; a 2-layer (one
    dense, one MoE) deepseek prefill; a 2-layer rwkv6-3b prefill and decode
    steps;
-5. the device time alone (torch.profiler, L2 flushed) of RMSNorm and
-   WKV6, the new kernels and the ones kept beside them, after the served
-   runs, whose host timings a profiler session would slow;
-6. the JSON line of the kernels, then the JSON line of the device.
+5. training: full-width llama3.1-8b cut to 8 of its 32 layers, B 2 x S
+   4096, bf16 compute on fp32 master weights, 10 steps through ``Trainer``
+   with the Lit Silicon hook (gpu-red), every flash and RMSNorm forward and
+   backward launch counted against the layers (the per-layer checkpoint's
+   recompute doubles the forwards), the loss finite and falling, every
+   parameter (every layer's slice) with a non-zero gradient; ms/step,
+   tokens/s, peak memory, device-busy share; a checkpoint round trip of a
+   reduced model on the card; then the loss and every gradient of a 2-layer
+   full-width cut, kernel path against plain path;
+6. the device time alone (torch.profiler) of RMSNorm and WKV6, the new
+   kernels and the ones kept beside them (L2 flushed), and of the two
+   backward kernels, their plain versions and the library's backward, after
+   the served and trained runs, whose host timings a profiler session would
+   slow;
+7. the JSON line of the kernels, then the JSON line of the device.
+
+Phase 2 also holds the two backward kernels (flash attention's dQ, dK, dV
+from the forward's log-sum-exp; RMSNorm's dx, dw) against their plain
+versions and against autograd of the plain forward.
 
 It needs ``src/repro_torch`` beside it, and CUDA; without either it exits
 non-zero and prints no result.
@@ -44,7 +59,7 @@ import json
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from unittest import mock
 
@@ -54,17 +69,22 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import TrainConfig, get_config  # noqa: E402
+from repro_torch.core.manager import ManagerConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as moe_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd  # noqa: E402
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd  # noqa: E402
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
@@ -72,7 +92,12 @@ from repro_torch.kernels.rwkv6_wkv.kernel import wkv6_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.serve.decode import ServeConfig, ServingLoop  # noqa: E402
+from repro_torch.train.checkpoint import flatten_with_paths  # noqa: E402
+from repro_torch.train.data import DataConfig, SyntheticTokens  # noqa: E402
+from repro_torch.train.train_loop import (LitSiliconHook, Trainer,  # noqa: E402
+                                          TrainerConfig)
 
 # H100 SXM data sheet (dense, 700 W): the card's least time for a function
 HBM_BYTES_PER_S = 3.35e12
@@ -100,10 +125,29 @@ MAX_FLIPPED_SHARE = 0.5
 # serving shape reaches ~12) exceeds 5e-2: hence the rtol of one step for bf16
 WKV_TOL = {torch.float32: (5e-4, 0.0), torch.bfloat16: (5e-2, 2 ** -7)}
 KERNELS = [fa_ops.flash_attention_fwd, rms_ops.rmsnorm_fwd,
-           moe_ops.moe_gemm_fwd, wkv_ops.wkv6_fwd]
-# the kernel every served launch of each wrapper must take
+           moe_ops.moe_gemm_fwd, wkv_ops.wkv6_fwd, fa_ops.flash_attention_bwd,
+           rms_ops.rmsnorm_bwd]
+# the kernel every served or trained launch of each wrapper must take
 SERVED_PATH = {"flash_attention_fwd": "wgmma", "rmsnorm_fwd": "vector",
-               "moe_gemm_fwd": "wgmma", "wkv6_fwd": "split"}
+               "moe_gemm_fwd": "wgmma", "wkv6_fwd": "split",
+               "flash_attention_bwd": "simt", "rmsnorm_bwd": "simt"}
+# backward kernels against their plain backward (same inputs, same lse) and
+# against autograd of the plain forward: fp32 and bf16 relative to each
+# gradient's largest magnitude (sums over many keys or rows; in bf16 the
+# kernel rounds P for dV and each gradient once, as the plain backward does)
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the training phase: full-width llama3.1-8b, 8 of 32 layers, B 2 x S 4096
+TRAIN = dict(arch="llama3.1-8b", layers=8, batch=2, seq=4096, steps=10,
+             lr=1e-3)
+# kernel path vs plain path, loss and every gradient leaf of a 2-layer
+# full-width bf16 cut: both round activations to bf16 at the same points
+# and sum in another order, so values on a rounding boundary move one bf16
+# step (2**-8 relative) and such flips compound through 2 layers and the
+# backward: the mean as E2E_TOL's for the logits of the same cut (2% of
+# unit-scale values; the forward alone differs by 0.76% there), the largest
+# difference to 5% of a leaf's largest gradient; a detached kernel output
+# would leave a leaf's gradient 100% off
+TRAIN_TOL = {"loss": 1e-2, "max_rel": 5e-2, "mean_rel": 2e-2}
 # the redesigned kernels' times before their wgmma redesign, by this script
 # on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), at the shapes of phase 2:
 # printed in the log beside this run's times, never in the kernels line
@@ -146,31 +190,60 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
-def device_ms(fn, iters: int = 20):
-    """Device time in ms of the one kernel a call of fn() launches
-    (torch.profiler), L2 flushed before each call: the kernel alone, without
-    the gaps around a launch that cuda_ms's events also hold.  A profiler
-    session now and then drops kernel records: one that did not record
-    ``iters`` kernels, each with its time, is run again; after three such
-    sessions the time is not measured (None)."""
+SENTINELS = 3      # kernels launched around the timed ones, then left out
+
+
+def profiled_kernels(calls):
+    """The CUDA kernel records (key_averages) of one torch.profiler session
+    (CPU and CUDA traced) around ``calls()``, with SENTINELS spin kernels
+    before and after it that are left out: a session may lose the records of
+    its first or last kernels (after the training phase every session lost
+    its first two), and then loses the sentinels' instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    cuda_ms(fn, iters=1)                          # warm, and the flush made
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+
+    def spin():
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        spin()
+        calls()
+        spin()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "spin" not in e.key]
+
+
+def device_ms(fn, iters: int = 20, kernels: int = 1, flush: bool = True):
+    """Device time in ms of the kernels one call of fn() launches
+    (torch.profiler): the kernels alone, without the gaps around a launch
+    that cuda_ms's events also hold.  ``flush``: L2 flushed before each call
+    (the flush's own fill kernels left out); ``kernels``: how many one call
+    launches (0: any whole number a call).  A profiler session now and then
+    drops kernel records: one that did not record that many, each with its
+    time, is run again; after three such sessions the time is not measured
+    (None)."""
+    if flush:
+        cuda_ms(fn, iters=1)                      # warm, and the flush made
+    else:
+        fn()
+        torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(iters):
+            if flush:
                 _FLUSH.zero_()
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and "fill" not in e.key.lower()]
-        if sum(e.count for e in kernels) == iters and \
-                all(e.self_device_time_total > 0 for e in kernels):
-            return sum(e.self_device_time_total for e in kernels) / iters / 1e3
-        log(f"  profiler recorded {[(e.key[:40], e.count) for e in kernels]}"
-            f", not {iters} kernels")
+            fn()
+    for _ in range(3):
+        ev = [e for e in profiled_kernels(calls)
+              if not (flush and "fill" in e.key.lower())]
+        n = sum(e.count for e in ev)
+        if n and n % iters == 0 and (not kernels or n == kernels * iters) \
+                and all(e.self_device_time_total > 0 for e in ev):
+            return sum(e.self_device_time_total for e in ev) / iters / 1e3
+        log(f"  profiler recorded {[(e.key[:40], e.count) for e in ev][:4]}"
+            f" ({n} kernels) for {iters} calls")
     log("  device time not measured: the profiler dropped kernels in 3 "
         "sessions")
     return None
@@ -248,7 +321,8 @@ def card() -> None:
 def build() -> None:
     t0 = time.perf_counter()
     _build.build_all()
-    for name in ("flash_attention", "rmsnorm", "moe_gemm", "wkv6"):
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                 "moe_gemm", "wkv6"):
         _build.library(name)
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     for entry in _build.build_log:
@@ -650,6 +724,172 @@ def wkv6_checks(g) -> dict:
     return row
 
 
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1e-30)
+
+
+def check_grads(name: str, got, plain, auto, tol: float) -> float:
+    """Each gradient against the plain backward's and autograd's, relative
+    to its largest magnitude; returns the largest error."""
+    worst = 0.0
+    for n, a, b, c in zip("qkv" if len(got) == 3 else "xw", got, plain, auto):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name}: d{n} {a.dtype} {tuple(a.shape)}, "
+                                 f"plain {b.dtype} {tuple(b.shape)}")
+        worst = max(worst, rel_err(a, b), rel_err(a, c))
+    log(f"  {name}: max rel_err {worst:.3e} (tol {tol:g}) "
+        f"{'ok' if worst <= tol else 'FAILED'}")
+    if worst > tol:
+        raise AssertionError(f"{name}: gradient error {worst} above {tol}")
+    return worst
+
+
+def autograd_of(fn, inputs, dout):
+    """Gradients of sum(fn(*inputs) * dout) by autograd, on fp32 copies."""
+    leaves = [t.detach().float().requires_grad_() for t in inputs]
+    fn(*leaves).backward(dout.float())
+    return [t.grad for t in leaves]
+
+
+def flash_bwd_checks(g) -> dict:
+    dev = "cuda"
+    log("flash attention backward (kernel vs plain backward and autograd):")
+    cases = [  # (B, Sq, Sk, H, kvH, D, dtype, causal, window, q_offset)
+        (2, 200, 200, 8, 8, 16, torch.float32, True, 0, 0),
+        (2, 200, 200, 8, 2, 64, torch.bfloat16, True, 32, 0),
+        (1, 300, 300, 16, 2, 128, torch.bfloat16, True, 0, 0),
+        (2, 131, 131, 4, 4, 128, torch.float32, False, 0, 0),
+        (2, 65, 193, 8, 2, 64, torch.float32, True, 48, 128),
+        (1, 96, 96, 8, 1, 32, torch.bfloat16, False, 40, 0),
+        (2, 77, 77, 8, 1, 16, torch.bfloat16, True, 16, 0),
+        (2, 257, 257, 32, 8, 128, torch.bfloat16, True, 0, 0),
+    ]
+    for B, Sq, Sk, H, kvH, D, dt, causal, window, off in cases:
+        q, do = (torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Sk, kvH, D, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window, q_offset=off)
+        o, lse = flash_attention_fwd(q, k, v, **kw, return_lse=True)
+        _, lse_ref = flash_attention_ref(q, k, v, **kw, return_lse=True)
+        lse_err = max_err(lse, lse_ref)
+        grads, path = took(flash_attention_bwd, lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, **kw))
+        check_grads(f"B{B} Sq{Sq} Sk{Sk} H{H}/{kvH} D{D} {str(dt)[6:]} "
+                    f"causal={causal} window={window} q_offset={off} [{path}]"
+                    f" (lse max_abs_err {lse_err:.1e})", grads,
+                    flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+                    autograd_of(lambda a, b, c: flash_attention_ref(
+                        a, b, c, **kw), (q, k, v), do), BWD_TOL[dt])
+        if lse_err > 1e-4:
+            raise AssertionError(f"lse error {lse_err}")
+
+    # the training shape: B 2, S 4096, H 32/8, D 128, bf16, causal
+    B, S, H, kvH, D, dt = 2, 4096, 32, 8, 128, torch.bfloat16
+    q, do = (torch.randn(B, S, H, D, generator=g, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, kvH, D, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    plain = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    err = max(rel_err(a, b) for a, b in zip(grads, plain))
+    log(f"  main shape B{B} S{S} H{H}/{kvH} D{D} bf16 causal: max rel_err "
+        f"{err:.3e} against the plain backward (tol {BWD_TOL[dt]:g})")
+    if err > BWD_TOL[dt]:
+        raise AssertionError("flash backward, main shape")
+    del plain
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                             causal=True), iters=5)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
+    lib = sdpa_backward(q, k, v, do)
+    lib_ms = cuda_ms(lib, iters=5)
+    nbytes = 2 * (3 * q.numel() + 4 * k.numel()) + lse.numel() * 4
+    flops = 5 * B * H * S * S * D          # 5 products, the causal half
+    b_ms, b_by = bound(nbytes, flops, dt)
+    log(f"  main shape: kernel {ms:.3f} ms ({ms / b_ms:.1f}x its bound, "
+        f"{ms / lib_ms:.1f}x sdpa's backward), plain {plain_ms:.3f} ms, "
+        f"sdpa backward {lib_ms:.3f} ms, bound {b_ms * 1e3:.1f} us ({b_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP); {CARD}")
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/attention.py:152",
+                replaces_note="no TPU kernel: XLA autodiff of sdpa_flash",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def sdpa_backward(q, k, v, do):
+    """One autograd backward of F.scaled_dot_product_attention (causal, GQA)
+    on q, k, v (B, S, H, D): the library's yardstick for flash's backward."""
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True)
+
+
+def rms_norm_backward(x, w, dy):
+    """One autograd backward of F.rms_norm (weight in x's dtype)."""
+    leaves = [x.detach().requires_grad_(),
+              w.to(x.dtype).detach().requires_grad_()]
+    y = F.rms_norm(leaves[0], (x.shape[-1],), leaves[1], 1e-5)
+    return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+
+def rmsnorm_bwd_checks(g) -> dict:
+    dev = "cuda"
+    log("rmsnorm backward (kernel vs plain backward and autograd):")
+    cases = [  # (rows, d, x dtype, w dtype)
+        (8192, 4096, torch.bfloat16, torch.float32),     # llama training
+        (2 * 4096 * 32, 128, torch.bfloat16, torch.float32),   # qk-norm rows
+        (64, 2560, torch.float32, torch.float32),
+        (33, 16, torch.float32, torch.float32),           # reduced models
+        (7, 5000, torch.bfloat16, torch.bfloat16),
+        (3, 8192, torch.float32, torch.bfloat16),
+    ]
+    for rows, d, dt, wdt in cases:
+        x, dy = (torch.randn(rows, d, generator=g, device=dev).to(dt)
+                 for _ in range(2))
+        w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(wdt)
+        grads, path = took(rmsnorm_bwd, lambda: rmsnorm_bwd(x, w, dy))
+        again = rmsnorm_bwd(x, w, dy)[1]
+        leaves = [x.detach().float().requires_grad_(),
+                  w.detach().float().requires_grad_()]
+        rmsnorm_ref(*leaves).backward(dy.float())
+        tol = max(BWD_TOL[dt], BWD_TOL[wdt])
+        check_grads(f"rows {rows} d {d} x {str(dt)[6:]} w {str(wdt)[6:]} "
+                    f"[{path}], dw the same bits twice: "
+                    f"{torch.equal(again, grads[1])}", grads,
+                    rmsnorm_bwd_ref(x, w, dy), [t.grad for t in leaves], tol)
+        if not torch.equal(again, grads[1]):
+            raise AssertionError("rmsnorm backward: dw differs between runs")
+
+    x, dy = (torch.randn(8192, 4096, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    w = torch.randn(4096, generator=g, device=dev)
+    err = max(rel_err(a, b) for a, b in zip(rmsnorm_bwd(x, w, dy),
+                                            rmsnorm_bwd_ref(x, w, dy)))
+    ms = cuda_ms(lambda: rmsnorm_bwd(x, w, dy))
+    plain_ms = cuda_ms(lambda: rmsnorm_bwd_ref(x, w, dy))
+    lib_ms = cuda_ms(rms_norm_backward(x, w, dy))
+    nbytes = 3 * x.numel() * 2 + 2 * w.numel() * 4
+    b_ms, b_by = bound(nbytes, 8 * x.numel(), torch.float32)
+    log(f"  main shape 8192x4096 bf16: kernel {ms:.4f} ms ({ms / b_ms:.1f}x "
+        f"its bound), plain {plain_ms:.4f} ms, F.rms_norm backward "
+        f"{lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}: "
+        f"{nbytes / 1e6:.1f} MB); {CARD}")
+    return dict(name="rmsnorm_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                replaces="src/repro/models/common.py:79",
+                replaces_note="no TPU kernel: XLA autodiff of rmsnorm",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
 # --------------------------------------------------------------------------- #
 # Phase 3: serve llama3.1-8b, deepseek-v3-16b and rwkv6-3b
 # --------------------------------------------------------------------------- #
@@ -657,15 +897,16 @@ def expected_launches(cfg, new_tokens: int) -> dict:
     """Launches of each kernel in one served run: prefill + new_tokens - 1
     decode steps, new_tokens forwards in all."""
     n_moe = (cfg.n_layers - cfg.moe.first_k_dense) if cfg.moe else 0
+    no_backward = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0}
     if cfg.family == "rwkv":      # no attention; ln0 after the embedding
         return {"flash_attention_fwd": 0,
                 "rmsnorm_fwd": (2 * cfg.n_layers + 2) * new_tokens,
                 "moe_gemm_fwd": 0,
-                "wkv6_fwd": cfg.n_layers * new_tokens}
+                "wkv6_fwd": cfg.n_layers * new_tokens, **no_backward}
     return {"flash_attention_fwd": cfg.n_layers,         # prefill only
             "rmsnorm_fwd": (2 * cfg.n_layers + 1) * new_tokens,
             "moe_gemm_fwd": 3 * n_moe * new_tokens,
-            "wkv6_fwd": 0}
+            "wkv6_fwd": 0, **no_backward}
 
 
 def serve(args, arch: str) -> dict:
@@ -777,7 +1018,7 @@ def device_profile(what: str, step_ms: float, fn, top: int = 6) -> None:
     log(f"{what} profile: device busy {busy:.2f} ms of {step_ms:.2f} ms "
         f"({100 * busy / step_ms:.1f}%, idle {100 - 100 * busy / step_ms:.1f}%)"
         f" in {sum(r[1] for r in rows)} kernel launches; {CARD}")
-    ours = ("fa_fwd", "moe_gemm", "rms_", "wkv6_")
+    ours = ("fa_fwd", "fa_bwd", "moe_gemm", "rms_", "wkv6_")
     for n, (ms, count, key) in enumerate(sorted(rows, reverse=True)):
         if n < top or any(k in key for k in ours):   # and the port's kernels
             log(f"  {ms:8.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  "
@@ -800,12 +1041,12 @@ def _leaves(tree):
 # --------------------------------------------------------------------------- #
 @contextmanager
 def plain_path():
-    """Route the ops of a CUDA run through the plain versions."""
-    with mock.patch.object(fa_ops, "flash_attention_fwd",
-                           flash_attention_ref), \
-            mock.patch.object(rms_ops, "rmsnorm_fwd", rmsnorm_ref), \
-            mock.patch.object(moe_ops, "moe_gemm_fwd", moe_gemm_ref), \
-            mock.patch.object(wkv_ops, "wkv6_fwd", wkv6_ref):
+    """Route the ops of a CUDA run through the plain versions (autograd
+    then differentiates them, as on the CPU)."""
+    with mock.patch.object(fa_ops, "flash_attention", flash_attention_ref), \
+            mock.patch.object(rms_ops, "rmsnorm", rmsnorm_ref), \
+            mock.patch.object(moe_ops, "moe_gemm", moe_gemm_ref), \
+            mock.patch.object(wkv_ops, "wkv6", wkv6_ref):
         yield
 
 
@@ -949,8 +1190,234 @@ def rwkv_kernel_vs_plain(args, steps: int = 4) -> None:
 
 
 # --------------------------------------------------------------------------- #
-# Phase 5: device times of the redesigned kernels
+# Phase 5: train llama3.1-8b (8 of 32 layers) on the card
 # --------------------------------------------------------------------------- #
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Launches of each kernel in ``steps`` dense training steps: every layer
+    runs under an activation checkpoint, so its flash attention and norms
+    run forward twice (the forward, the recompute in the backward) and
+    backward once; the final norm once each way."""
+    L = cfg.n_layers
+    norms = 4 if cfg.qk_norm else 2                     # ln1, ln2 (q, k)
+    return {"flash_attention_fwd": 2 * L * steps,
+            "rmsnorm_fwd": (2 * norms * L + 1) * steps,
+            "moe_gemm_fwd": 0, "wkv6_fwd": 0,
+            "flash_attention_bwd": L * steps,
+            "rmsnorm_bwd": (norms * L + 1) * steps}
+
+
+class GradientCheck:
+    """Trainer hook: every parameter leaf has a finite, non-zero gradient
+    after each step, and each layer's slice of a stacked leaf too (a
+    detached kernel output would leave the layers below it at zero)."""
+
+    def __init__(self):
+        self.step_times = []
+
+    def __call__(self, step, metrics, trainer) -> None:
+        torch.cuda.synchronize()
+        self.step_times.append(time.perf_counter())
+        bad = []
+        for key, t in flatten_with_paths(trainer.state.params):
+            g = t.grad
+            if g is None:
+                bad.append(f"{key}: no gradient")
+                continue
+            per = g.flatten(1).abs().amax(1) if key.startswith("g") \
+                else g.abs().amax().reshape(1)
+            if not bool(torch.isfinite(per).all()) or not bool((per > 0).all()):
+                bad.append(f"{key}: zero or non-finite in slices "
+                           f"{(~(per > 0)).nonzero().flatten().tolist()}")
+        if bad:
+            raise AssertionError(f"step {step}: " + "; ".join(bad))
+
+
+def train(args) -> tuple:
+    """Train full-width llama3.1-8b cut to TRAIN["layers"] layers through
+    ``Trainer`` with the Lit Silicon hook; returns (launch counts, counts by
+    path) of the trained steps."""
+    cfg = get_config(TRAIN["arch"]).replace(n_layers=TRAIN["layers"])
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    ck = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoints"
+    tc = TrainerConfig(
+        model=cfg,
+        train=TrainConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=steps,
+                          checkpoint_every=0, checkpoint_dir=str(ck / "full"),
+                          seed=args.seed),
+        data=DataConfig(global_batch=B, seq_len=S, seed=args.seed))
+    hook = LitSiliconHook(      # as launch/train.py: the FULL arch workload
+        get_config(TRAIN["arch"]),
+        ManagerConfig(use_case="gpu-red", sampling_period=2, warmup=3,
+                      window_size=2), preset="mi300x")
+    grads = GradientCheck()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(tc, hooks=[hook, grads], device="cuda")
+    trainer.init_or_restore()
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(trainer.state.params))
+    log(f"train {cfg.name} cut to {cfg.n_layers} of 32 layers: d "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B fp32 "
+        f"params + 2 fp32 moments made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; B {B} x S {S}, bf16 compute, "
+        f"AdamW lr {TRAIN['lr']}, gpu-red hook")
+
+    log(f"launch counts before the run: "
+        f"{ {k.__name__: k.launches for k in KERNELS} }; set to 0")
+    for k in KERNELS:
+        _build.reset_counts(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = trainer.run(steps)                    # the main path
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in KERNELS}
+    by_path = {k.__name__: dict(k.launches_by_path) for k in KERNELS}
+    log(f"trained {steps} steps in {wall:.2f} s; launch counts after the "
+        f"run: {launches}, by path: {by_path}")
+    losses = [m["loss"] for m in metrics]
+    log(f"  losses {['%.4f' % x for x in losses]}; grad norms "
+        f"{['%.3f' % m['grad_norm'] for m in metrics]}; lr "
+        f"{['%.2e' % m['lr'] for m in metrics]}")
+    log(f"  hook: sim node power {metrics[-1]['sim/node_power']:.1f} W, "
+        f"freq {metrics[-1]['sim/freq_min']:.3f}-"
+        f"{metrics[-1]['sim/freq_max']:.3f}, caps "
+        f"{np.round(hook.backend.get_power_caps(), 1).tolist()}, "
+        f"{len(hook.manager.adjust_log)} adjustments")
+    if len(metrics) != steps or not all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"training: {len(metrics)} steps, losses "
+                             f"{losses}: not finite and falling")
+    for name, want in expected_train_launches(cfg, steps).items():
+        if launches[name] != want:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"training, expected {want}")
+    for name, paths in by_path.items():
+        if paths[SERVED_PATH[name]] != launches[name]:
+            raise AssertionError(f"{name}: {paths} of {launches[name]} "
+                                 f"launches; all must take the "
+                                 f"{SERVED_PATH[name]} path")
+    dts = np.diff([t0] + grads.step_times) * 1e3
+    step_ms = float(np.median(dts[1:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{cfg.name}: {step_ms:.1f} ms/step (median of steps 2-{steps}; "
+        f"step 1 {dts[0]:.1f} ms; all {['%.1f' % x for x in dts]}) = "
+        f"{B * S * 1e3 / step_ms:.0f} tokens/s; peak memory {peak:.2f} GB; "
+        f"{CARD}")
+    device_profile(f"{cfg.name} train step", step_ms,
+                   lambda: trainer.run(1), top=10)
+    del trainer, metrics
+    torch.cuda.empty_cache()
+    checkpoint_round_trip(ck / "reduced")
+    return launches, by_path
+
+
+def checkpoint_round_trip(directory: Path) -> None:
+    """A reduced bf16 llama trained 4 steps on the card with a checkpoint
+    every 2; a new trainer restores step 4 bit for bit and trains on."""
+    import shutil
+    from repro_torch.configs import get_reduced_config
+    shutil.rmtree(directory, ignore_errors=True)
+    tc = TrainerConfig(
+        model=get_reduced_config("llama3.1-8b"),
+        train=TrainConfig(lr=3e-3, warmup_steps=1, total_steps=8,
+                          checkpoint_every=2, checkpoint_dir=str(directory)),
+        data=DataConfig(global_batch=4, seq_len=64))
+    first = Trainer(tc, device="cuda")
+    first.run(4)
+    first.ckpt.wait()
+    second = Trainer(tc, device="cuda")
+    second.init_or_restore()
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(second.state), tree_leaves(first.state)))
+    log2 = second.run(2)
+    second.ckpt.wait()
+    log(f"checkpoint round trip on the card (reduced llama3.1-8b, bf16): "
+        f"restored step {second.step - 2}, state equal {same}, then loss "
+        f"{log2[-1]['loss']:.4f}; files {sorted(p.name for p in directory.iterdir())}")
+    if second.step != 6 or not same or not np.isfinite(log2[-1]["loss"]):
+        raise AssertionError("checkpoint round trip on the card failed")
+    shutil.rmtree(directory, ignore_errors=True)
+
+
+def train_kernel_vs_plain(args, B: int = 2, S: int = 2048) -> None:
+    """Loss and every gradient leaf of a 2-layer full-width llama3.1-8b cut,
+    kernel path against plain path, on the same parameters and batch."""
+    cfg = get_config(TRAIN["arch"]).replace(n_layers=2)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = model.init_train_params(gen, "cuda")
+    data = SyntheticTokens(DataConfig(global_batch=B, seq_len=S,
+                                      seed=args.seed), cfg)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
+    results = []
+    for plain in (False, True):
+        for t in tree_leaves(params):
+            t.grad = None
+        with plain_path() if plain else nullcontext():
+            loss, _ = model.loss(params, batch)
+            loss.backward()
+        results.append((float(loss.detach()),
+                        [t.grad for t in tree_leaves(params)]))
+    (lk, gk), (lp, gp) = results
+    rows = []
+    for (key, _), a, b in zip(flatten_with_paths(params), gk, gp):
+        scale = float(b.abs().max())
+        rows.append((key, float((a - b).abs().max()) / scale,
+                     float((a - b).abs().mean()) / float(b.abs().mean())))
+    worst_max = max(r[1] for r in rows)
+    worst_mean = max(r[2] for r in rows)
+    log(f"2-layer full-width training (B {B} x S {S}), kernel vs plain path: "
+        f"loss {lk:.5f} vs {lp:.5f}; gradients, worst over "
+        f"{len(rows)} leaves: max_abs/max {worst_max:.3e}, mean_abs/mean "
+        f"{worst_mean:.3e} (tol {TRAIN_TOL})")
+    for key, mx, mn in rows:
+        log(f"  {key}: {mx:.3e} {mn:.3e}")
+    if abs(lk - lp) > TRAIN_TOL["loss"] or worst_max > TRAIN_TOL["max_rel"] \
+            or worst_mean > TRAIN_TOL["mean_rel"]:
+        raise AssertionError("training: kernel path and plain path disagree")
+    del params, results, gk, gp
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# Phase 6: device times of the redesigned and the backward kernels
+# --------------------------------------------------------------------------- #
+def backward_device_times(g, rows: dict, rounds: int = 3) -> None:
+    """Device time alone of the two backward kernels at their training
+    shapes, of their plain versions and of the library's backward
+    (autograd of F.scaled_dot_product_attention and of F.rms_norm), in
+    ``rounds`` alternating rounds, their mean into the rows."""
+    dev, bf = "cuda", torch.bfloat16
+    q, do = (torch.randn(2, 4096, 32, 128, generator=g, device=dev).to(bf)
+             for _ in range(2))
+    k, v = (torch.randn(2, 4096, 8, 128, generator=g, device=dev).to(bf)
+            for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    x, dy = (torch.randn(8192, 4096, generator=g, device=dev).to(bf)
+             for _ in range(2))
+    w = torch.randn(4096, generator=g, device=dev)
+    fa, rms = rows["flash_attention_bwd"], rows["rmsnorm_bwd"]
+    timed = [   # (row, key, fn, kernels a call)
+        (fa, "device_ms", lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, causal=True), 3),
+        (fa, "plain_device_ms", lambda: flash_attention_bwd_ref(
+            q, k, v, o, lse, do, causal=True), 0),
+        (fa, "library_device_ms", sdpa_backward(q, k, v, do), 0),
+        (rms, "device_ms", lambda: rmsnorm_bwd(x, w, dy), 2),
+        (rms, "plain_device_ms", lambda: rmsnorm_bwd_ref(x, w, dy), 0),
+        (rms, "library_device_ms", rms_norm_backward(x, w, dy), 0),
+    ]
+    reads = [[device_ms(fn, iters=5, kernels=n, flush=False)
+              for _, _, fn, n in timed] for _ in range(rounds)]
+    for (row, key, _, _), ms in zip(timed, zip(*reads)):
+        row[key] = None if None in ms else sum(ms) / rounds
+        log(f"{row['name']} {key[:-3]} (torch.profiler), ms: "
+            + ", ".join("not measured" if t is None else f"{t:.4f}"
+                        for t in ms) + f"; {CARD}")
+
+
 def device_times(g, rows: dict, rounds: int = 3) -> None:
     """Device time alone (torch.profiler) of the redesigned RMSNorm and WKV6
     kernels at phase 2's main shapes, of the kernels kept beside them (the
@@ -1016,17 +1483,23 @@ def main(argv=None) -> int:
         print(json.dumps({"host_us": host_costs(g)}), flush=True)
         return 0
     rows = [flash_checks(g), rmsnorm_checks(g), moe_gemm_checks(g),
-            wkv6_checks(g)]
+            wkv6_checks(g), flash_bwd_checks(g), rmsnorm_bwd_checks(g)]
     costs = host_costs(g)
     for row in rows:
         row.update(costs.get(row["name"], {}))
+    torch.cuda.empty_cache()
     by_run = {"llama3.1-8b": serve(args, "llama3.1-8b")}
     kernel_vs_plain(args)
     by_run["deepseek-v3-16b"] = serve(args, "deepseek-v3-16b")
     moe_kernel_vs_plain(args)
     by_run["rwkv6-3b"] = serve(args, "rwkv6-3b")
     rwkv_kernel_vs_plain(args)
-    device_times(g, {row["name"]: row for row in rows})
+    torch.cuda.empty_cache()
+    by_run["llama3.1-8b train"] = train(args)
+    train_kernel_vs_plain(args)
+    by_name = {row["name"]: row for row in rows}
+    device_times(g, by_name)
+    backward_device_times(g, by_name)
     for row, fn in zip(rows, KERNELS):
         name = fn.__name__
         counts = {arch: n[name] for arch, (n, _) in by_run.items()}

@@ -3,8 +3,8 @@
 A copy of the model half of ``repro.configs.base`` (``ModelConfig``, its
 family sub-configs and ``reduce_config``): the port must not import the JAX
 package, whose ``repro`` import chain pulls in JAX, and the machine with the
-card has no JAX.  Shapes, run and parallelism configs wait for the slices
-that use them.
+card has no JAX.  ``TrainConfig`` is a copy too, for the training slice;
+shapes and parallelism configs wait for the slices that use them.
 """
 from __future__ import annotations
 
@@ -242,6 +242,27 @@ class ModelConfig:
                                     + 2 * self.d_model * self.d_ff)
             p += self.n_layers * self._attn_params()
         return p
+
+
+# --------------------------------------------------------------------------- #
+# Run configs
+# --------------------------------------------------------------------------- #
+@dataclass
+class TrainConfig:
+    lr: float = 3e-4
+    min_lr_frac: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    z_loss_weight: float = 1e-4
+    seed: int = 0
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "checkpoints"
+    keep_checkpoints: int = 3
 
 
 # --------------------------------------------------------------------------- #

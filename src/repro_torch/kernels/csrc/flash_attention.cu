@@ -71,7 +71,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const uint8_t* __restrict__ mask,
-              T* __restrict__ o, int Sq, int Sk, int H, int group,
+              T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
+              int H, int group,
               int64_t sqb, int64_t sqs, int64_t sqh,
               int64_t skb, int64_t sks, int64_t skh,
               int64_t svb, int64_t svs, int64_t svh,
@@ -191,6 +192,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + r + 8 * i;
     if (qi >= Sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
+    if (lse && c == 0) lse[((int64_t)b * H + h) * Sq + qi] = m[i] + logf(li);
     T* orow = o + (((int64_t)b * Sq + qi) * H + h) * D;
 #pragma unroll
     for (int jj = 0; jj < DC; ++jj) orow[c + 16 * jj] = from_f<T>(acc[i][jj] / li);
@@ -199,7 +201,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* mask, void* o, int B, int Sq, int Sk, int H,
+                   const uint8_t* mask, void* o, float* lse, int B, int Sq,
+                   int Sk, int H,
                    int kvH, const long long* st, int causal, int window,
                    int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
@@ -209,7 +212,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   fa_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      mask, static_cast<T*>(o), Sq, Sk, H, H / kvH, st[0], st[1], st[2], st[3],
+      mask, static_cast<T*>(o), lse, Sq, Sk, H, H / kvH, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], causal, window, q_offset, scale);
   return cudaGetLastError();
 }
@@ -218,14 +221,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // fa_fwd_wgmma's, so no such instance is built
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     const uint8_t* mask, void* o, int B, int Sq, int Sk, int H,
+                     const uint8_t* mask, void* o, float* lse, int B, int Sq,
+                     int Sk, int H,
                      int kvH, const long long* st, int causal, int window,
                      int q_offset, float scale, cudaStream_t s) {
-  if (D == 16) return launch<T, 16>(q, k, v, mask, o, B, Sq, Sk, H, kvH, st, causal, window, q_offset, scale, s);
-  if (D == 32) return launch<T, 32>(q, k, v, mask, o, B, Sq, Sk, H, kvH, st, causal, window, q_offset, scale, s);
+  if (D == 16) return launch<T, 16>(q, k, v, mask, o, lse, B, Sq, Sk, H, kvH, st, causal, window, q_offset, scale, s);
+  if (D == 32) return launch<T, 32>(q, k, v, mask, o, lse, B, Sq, Sk, H, kvH, st, causal, window, q_offset, scale, s);
   if constexpr (std::is_same_v<T, float>) {
-    if (D == 64) return launch<T, 64>(q, k, v, mask, o, B, Sq, Sk, H, kvH, st, causal, window, q_offset, scale, s);
-    if (D == 128) return launch<T, 128>(q, k, v, mask, o, B, Sq, Sk, H, kvH, st, causal, window, q_offset, scale, s);
+    if (D == 64) return launch<T, 64>(q, k, v, mask, o, lse, B, Sq, Sk, H, kvH, st, causal, window, q_offset, scale, s);
+    if (D == 128) return launch<T, 128>(q, k, v, mask, o, lse, B, Sq, Sk, H, kvH, st, causal, window, q_offset, scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -236,6 +240,7 @@ constexpr int WK = 64;            // keys per ring stage
 constexpr int W_STAGES = 3;
 constexpr int W_THREADS = 288;    // two consumer warpgroups + a producer warp
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct WgTile {
@@ -324,8 +329,9 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap mq,
              const __grid_constant__ CUtensorMap mk,
              const __grid_constant__ CUtensorMap mv,
              const __grid_constant__ CUtensorMap mo,
-             const uint8_t* __restrict__ mask, int Sq, int Sk, int group,
-             int causal, int window, int q_offset, float scale) {
+             const uint8_t* __restrict__ mask, float* __restrict__ lse, int Sq,
+             int Sk, int group, int causal, int window, int q_offset,
+             float scale) {
   using Tile = WgTile<D>;
   constexpr int HALVES = Tile::HALVES;
   extern __shared__ unsigned char smem_raw[];
@@ -523,6 +529,15 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap mq,
   // epilogue: o / l in bf16 into this warpgroup's rows of the Q tile (now
   // read by no one), then one TMA store per 64-wide box, clipped at Sq
   const float l_c[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+  if (lse && (lane & 3) == 0) {       // natural-log lse of the two rows
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = qi0 + 8 * i;
+      if (qi < Sq)
+        lse[((int64_t)b * gridDim.x + h) * Sq + qi] =
+            m[i] == NEG_BIG ? NEG_BIG : (m[i] + log2f(l_c[i])) * LN2;
+    }
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     unsigned char* box = q_own + (j / 8) * WQ * 128;
@@ -549,8 +564,9 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap mq,
 // cannot take a layout (the Python wrapper raises before that).
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         const uint8_t* mask, void* o, int B, int Sq, int Sk,
-                         int H, int kvH, const long long* st, int causal,
+                         const uint8_t* mask, void* o, float* lse, int B,
+                         int Sq, int Sk, int H, int kvH, const long long* st,
+                         int causal,
                          int window, int q_offset, float scale,
                          cudaStream_t stream) {
   constexpr size_t smem = WgTile<D>::SMEM;
@@ -574,7 +590,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   if ((err = map(&mo, o, Sq, H, ost, obox)) != cudaSuccess) return err;
   dim3 grid(H, B, (Sq + WQ - 1) / WQ);
   fa_fwd_wgmma<D><<<grid, W_THREADS, smem, stream>>>(
-      mq, mk, mv, mo, mask, Sq, Sk, H / kvH, causal, window, q_offset, scale);
+      mq, mk, mv, mo, mask, lse, Sq, Sk, H / kvH, causal, window, q_offset,
+      scale);
   return cudaGetLastError();
 }
 
@@ -585,11 +602,15 @@ EXPORT_ERROR_STRING
 // q: (B, Sq, H, D), k/v: (B, Sk, kvH, D), each with unit stride on D and
 // element strides (batch, seq, head) given in `strides` as q, k, v triples.
 // o: (B, Sq, H, D) contiguous.  mask: null or (Sq, Sk) contiguous bytes.
+// lse: null, or (B, H, Sq) fp32 that gets each row's natural-log
+// log-sum-exp of its scaled, masked scores, m + log l (-1e30 for a row that
+// sees no key), for the backward.
 // path: the kernel to launch, as the Python wrapper chose it: kPathWgmma
 // (bf16, D 64 or 128) or kPathSimt (fp32; bf16 with D 16 or 32).  Inputs
 // that kernel cannot take return cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   const void* mask, void* o, int dtype, int B,
+                                   const void* mask, void* o, float* lse,
+                                   int dtype, int B,
                                    int Sq, int Sk, int H, int kvH, int D,
                                    const long long* strides, int causal,
                                    int window, int q_offset, float scale,
@@ -598,13 +619,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   if (path == kPathWgmma && dtype == kBFloat16) {
     if (D == 64)
-      return launch_wgmma<64>(q, k, v, m, o, B, Sq, Sk, H, kvH, strides, causal, window, q_offset, scale, s);
+      return launch_wgmma<64>(q, k, v, m, o, lse, B, Sq, Sk, H, kvH, strides, causal, window, q_offset, scale, s);
     if (D == 128)
-      return launch_wgmma<128>(q, k, v, m, o, B, Sq, Sk, H, kvH, strides, causal, window, q_offset, scale, s);
+      return launch_wgmma<128>(q, k, v, m, o, lse, B, Sq, Sk, H, kvH, strides, causal, window, q_offset, scale, s);
   }
   if (path == kPathSimt && dtype == kFloat32)
-    return launch_d<float>(D, q, k, v, m, o, B, Sq, Sk, H, kvH, strides, causal, window, q_offset, scale, s);
+    return launch_d<float>(D, q, k, v, m, o, lse, B, Sq, Sk, H, kvH, strides, causal, window, q_offset, scale, s);
   if (path == kPathSimt && dtype == kBFloat16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, m, o, B, Sq, Sk, H, kvH, strides, causal, window, q_offset, scale, s);
+    return launch_d<__nv_bfloat16>(D, q, k, v, m, o, lse, B, Sq, Sk, H, kvH, strides, causal, window, q_offset, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -31,6 +31,18 @@
 // Both sum the squares in fp32 (warp shuffles, then shared memory across
 // warps).  The residual form stores x + r rounded to x's dtype and
 // normalises the unrounded fp32 sum, as the TPU kernel does.
+//
+// The backward (rmsnorm_bwd; the TPU kernel has none: the JAX package
+// differentiates its plain rmsnorm with XLA) takes x, w and dy and gives
+// dx = rstd (w dy - x^ mean(x^ w dy)) in x's dtype, with x^ = x rstd and rstd
+// recomputed in fp32, and dw = sum over rows of dy x^.  Bound: bytes, three
+// row streams (x and dy in, dx out; 201 MB at the training shape, 8192 rows
+// of 4096 bf16: 60 us at 3.35 TB/s).  rms_bwd_kernel gives each block a
+// contiguous run of rows (a warp a row for rows up to 1024 wide, the block a
+// row above), holds a row's columns in registers between its two sums and
+// dx, and sums its rows' dy x^ per column in registers; it writes one fp32
+// partial row per block, which rms_dw_kernel adds up per column in block
+// order: dw is the same in every run, with no float atomics.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -324,6 +336,149 @@ cudaError_t launch_path(int path, const void* x, const void* r, const void* w,
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------- backward
+constexpr int BWD_NC_MAX = 32;      // columns of a row a thread holds
+
+// Rows [blockIdx.x rpb, + rpb) of x, dy; a row group (a warp if WARP_ROW,
+// else the block) takes a row at a time, each thread columns lane/tid +
+// GROUP c.  part[blockIdx.x] gets the block's per-column sum of dy x^.
+template <typename T, typename W, int NC, bool WARP_ROW>
+__global__ void __launch_bounds__(THREADS)
+rms_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
+               const T* __restrict__ dy, T* __restrict__ dx,
+               float* __restrict__ part, int64_t rows, int d, float eps,
+               int64_t rpb) {
+  constexpr int GROUP = WARP_ROW ? 32 : THREADS;
+  constexpr int NGROUPS = THREADS / GROUP;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = WARP_ROW ? lane : threadIdx.x;
+  const int grp = WARP_ROW ? warp : 0;
+  const int64_t r0 = (int64_t)blockIdx.x * rpb;
+  const int64_t r1 = min(rows, r0 + rpb);
+  __shared__ float red[2][2][WARPS];        // alternating: one barrier a row
+
+  float wf[NC], acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int col = tid + GROUP * c;
+    wf[c] = col < d ? to_f(w[col]) : 0.f;
+    acc[c] = 0.f;
+  }
+  int n = 0;
+  for (int64_t row = r0 + grp; row < r1; row += NGROUPS, ++n) {
+    const int64_t base = row * d;
+    float xf[NC], g[NC];
+    float ss = 0.f, sxg = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = tid + GROUP * c;
+      xf[c] = col < d ? to_f(x[base + col]) : 0.f;
+      g[c] = col < d ? to_f(dy[base + col]) : 0.f;
+      ss = fmaf(xf[c], xf[c], ss);
+      sxg = fmaf(xf[c], g[c] * wf[c], sxg);
+    }
+    ss = sum32(ss);
+    sxg = sum32(sxg);
+    if constexpr (!WARP_ROW) {
+      float* p = red[n & 1][0];
+      float* q = red[n & 1][1];
+      if (lane == 0) { p[warp] = ss; q[warp] = sxg; }
+      __syncthreads();
+      ss = 0.f;
+      sxg = 0.f;
+#pragma unroll
+      for (int k = 0; k < WARPS; ++k) { ss += p[k]; sxg += q[k]; }
+    }
+    const float rstd = rsqrtf(ss / d + eps);
+    const float mean = rstd * sxg / d;      // mean of x^ w dy
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = tid + GROUP * c;
+      if (col < d) {
+        const float xh = xf[c] * rstd;
+        dx[base + col] = from_f<T>(rstd * (g[c] * wf[c] - xh * mean));
+        acc[c] = fmaf(g[c], xh, acc[c]);
+      }
+    }
+  }
+
+  float* out = part + (int64_t)blockIdx.x * d;
+  if constexpr (!WARP_ROW) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (tid + GROUP * c < d) out[tid + GROUP * c] = acc[c];
+  } else {
+    // the block's warps hold partial sums of the same columns: add them in
+    // warp order through shared memory
+    __shared__ float wsum[WARPS][32 * NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) wsum[warp][lane + 32 * c] = acc[c];
+    __syncthreads();
+    for (int col = threadIdx.x; col < d; col += THREADS) {
+      float t = 0.f;
+#pragma unroll
+      for (int k = 0; k < WARPS; ++k) t += wsum[k][col];
+      out[col] = t;
+    }
+  }
+}
+
+// dw[col] = sum of part[0..nblocks)[col], in block order
+template <typename W>
+__global__ void __launch_bounds__(THREADS)
+rms_dw_kernel(const float* __restrict__ part, W* __restrict__ dw, int nblocks,
+              int d) {
+  const int col = blockIdx.x * THREADS + threadIdx.x;
+  if (col >= d) return;
+  float t = 0.f;
+  for (int k = 0; k < nblocks; ++k) t += part[(int64_t)k * d + col];
+  dw[col] = from_f<W>(t);
+}
+
+template <typename T, typename W, int NC, bool WARP_ROW>
+cudaError_t launch_bwd_nc(const T* x, const W* w, const T* dy, T* dx, W* dw,
+                          float* part, int64_t rows, int d, float eps,
+                          int nblocks, cudaStream_t s) {
+  const int64_t rpb = (rows + nblocks - 1) / nblocks;
+  rms_bwd_kernel<T, W, NC, WARP_ROW><<<nblocks, THREADS, 0, s>>>(
+      x, w, dy, dx, part, rows, d, eps, rpb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rms_dw_kernel<W><<<(d + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      part, dw, nblocks, d);
+  return cudaGetLastError();
+}
+
+// the fewest columns a thread must hold: a warp a row up to 1024 (32 a
+// lane), the block a row up to 8192 (32 a thread)
+template <typename T, typename W>
+cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+                       void* dw, float* part, int64_t rows, int d, float eps,
+                       int nblocks, cudaStream_t s) {
+  const T* xp = static_cast<const T*>(x);
+  const W* wp = static_cast<const W*>(w);
+  const T* dyp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  W* dwp = static_cast<W*>(dw);
+#define RMS_BWD(NC, WR) \
+  return launch_bwd_nc<T, W, NC, WR>(xp, wp, dyp, dxp, dwp, part, rows, d, eps, nblocks, s)
+  if (d <= WARP_ROW_MAX) {
+    const int nc = (d + 31) / 32;
+    if (nc <= 1) RMS_BWD(1, true);
+    if (nc <= 2) RMS_BWD(2, true);
+    if (nc <= 4) RMS_BWD(4, true);
+    if (nc <= 8) RMS_BWD(8, true);
+    if (nc <= 16) RMS_BWD(16, true);
+    RMS_BWD(32, true);
+  }
+  const int nc = (d + THREADS - 1) / THREADS;
+  if (nc <= 8) RMS_BWD(8, false);
+  if (nc <= 16) RMS_BWD(16, false);
+  if (nc <= 32) RMS_BWD(32, false);
+#undef RMS_BWD
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 EXPORT_ERROR_STRING
@@ -345,5 +500,25 @@ extern "C" int rmsnorm_fwd(const void* x, const void* r, const void* w, void* y,
     return launch_path<__nv_bfloat16, float>(path, x, r, w, y, res, rows, d, eps, s);
   if (x_dtype == kBFloat16 && w_dtype == kBFloat16)
     return launch_path<__nv_bfloat16, __nv_bfloat16>(path, x, r, w, y, res, rows, d, eps, s);
+  return cudaErrorInvalidValue;
+}
+
+// The backward.  x, dy, dx: (rows, d) contiguous in x_dtype; w, dw: (d,) in
+// w_dtype; part: (nblocks, d) fp32 scratch, nblocks >= 1 (rows split into
+// nblocks contiguous runs).  d at most 8192.
+extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy,
+                           void* dx, void* dw, float* part, int x_dtype,
+                           int w_dtype, long long rows, int d, float eps,
+                           int nblocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nblocks < 1 || d < 1 || d > THREADS * BWD_NC_MAX) return cudaErrorInvalidValue;
+  if (x_dtype == kFloat32 && w_dtype == kFloat32)
+    return launch_bwd<float, float>(x, w, dy, dx, dw, part, rows, d, eps, nblocks, s);
+  if (x_dtype == kFloat32 && w_dtype == kBFloat16)
+    return launch_bwd<float, __nv_bfloat16>(x, w, dy, dx, dw, part, rows, d, eps, nblocks, s);
+  if (x_dtype == kBFloat16 && w_dtype == kFloat32)
+    return launch_bwd<__nv_bfloat16, float>(x, w, dy, dx, dw, part, rows, d, eps, nblocks, s);
+  if (x_dtype == kBFloat16 && w_dtype == kBFloat16)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, w, dy, dx, dw, part, rows, d, eps, nblocks, s);
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,8 @@
 """Device dispatch for the WKV6 recurrence: the plain version on a CPU
 tensor, the CUDA kernel on a CUDA tensor (which launches or raises; there is
-no fallback)."""
+no fallback).  The kernel has no backward: a CUDA call that autograd would
+need a gradient of raises rather than return an output detached from its
+inputs."""
 from __future__ import annotations
 
 import torch
@@ -15,4 +17,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -> (y in r's dtype, final state fp32)."""
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, w_log, u, state)
+    given = (r, k, v, w_log, u) + ((state,) if state is not None else ())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in given):
+        raise NotImplementedError(
+            "the WKV6 kernel has no backward yet (RWKV6 training, ROADMAP.md "
+            "slice 10); its output would carry no gradient")
     return wkv6_fwd(r, k, v, w_log, u, state)

@@ -45,7 +45,7 @@ def attn_specs(cfg) -> Dict[str, ParamSpec]:
 # --------------------------------------------------------------------------- #
 def project_q(cfg, p, x, positions=None):
     B, S, _ = x.shape
-    q = x @ p["wq"]
+    q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
@@ -59,8 +59,8 @@ def project_q(cfg, p, x, positions=None):
 
 def project_kv(cfg, p, x, positions=None):
     B, S, _ = x.shape
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
     if "bk" in p:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
@@ -134,7 +134,7 @@ def attention(cfg, p, x, positions, *, causal=True, window_eff=0):
     k, v = project_kv(cfg, p, x, positions)
     out = sdpa_auto(q, k, v, causal=causal, window_eff=window_eff)
     B, S = x.shape[:2]
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -162,5 +162,5 @@ def decode_attention(cfg, p, x, pos: int, k_cache, v_cache):
     if cfg.window:
         valid &= kpos > pos - cfg.window
     out = sdpa(q, k_cache, v_cache, valid)
-    out = out.reshape(B, 1, cfg.q_dim).to(x.dtype) @ p["wo"]
+    out = out.reshape(B, 1, cfg.q_dim).to(x.dtype) @ p["wo"].to(x.dtype)
     return out, k_cache, v_cache

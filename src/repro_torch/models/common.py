@@ -5,14 +5,16 @@ The torch counterpart of ``repro.models.common``.  A model is a tree of
 package builds, so that its parameters carry over path for path;
 ``init_params`` materializes it on one device from a ``torch.Generator``.
 
-Matrices are held in the compute dtype: casting once at load
-equals the JAX code's per-use ``.astype(x.dtype)``.  Vectors (norm weights,
-biases) stay float32 and are cast where the JAX code casts them.  Two
-matrices stay float32 too, because the JAX code reads them in fp32 from
-fp32 parameters: the MoE router (the matrix whose output axis is
-``experts``), whose logits it computes in fp32, and RWKV's time-first bonus
-``u`` (path ``.../tm/u``, shape (H, D)), which enters the fp32 WKV
-recurrence as it is.
+For serving, matrices are held in the compute dtype (``load_dtype``):
+casting once at load equals the JAX code's per-use ``.astype(x.dtype)``.
+Vectors (norm weights, biases) stay float32 and are cast where the JAX code
+casts them.  Two matrices stay float32 too, because the JAX code reads them
+in fp32 from fp32 parameters: the MoE router (the matrix whose output axis
+is ``experts``), whose logits it computes in fp32, and RWKV's time-first
+bonus ``u`` (path ``.../tm/u``, shape (H, D)), which enters the fp32 WKV
+recurrence as it is.  For training every leaf is float32 (the JAX
+package's ``param_dtype``, ``trainable``), and the models cast each matrix
+to the activations' dtype where they use it, as the JAX code does.
 """
 from __future__ import annotations
 
@@ -86,6 +88,30 @@ def init_params(spec_tree, generator: torch.Generator, *,
     return tree_map_specs(make, spec_tree)
 
 
+def tree_leaves(tree):
+    """The tensors of a nested dict (or list) tree, dict keys in sorted
+    order: the order ``jax.tree_util`` flattens the same tree in."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def trainable(tree):
+    """Make every leaf of a float32 parameter tree a leaf tensor that
+    autograd gives a gradient (in place); returns the tree."""
+    for t in tree_leaves(tree):
+        if t.dtype != torch.float32:
+            raise TypeError(f"training parameters are float32 (param_dtype); "
+                            f"got a {t.dtype} leaf of shape {tuple(t.shape)}")
+        t.requires_grad_(True)
+    return tree
+
+
 def stack_specs(spec_tree, n: int):
     """Prepend a stacked 'layers' axis to every spec in a layer's spec tree."""
     return tree_map_specs(
@@ -95,11 +121,18 @@ def stack_specs(spec_tree, n: int):
 
 def layer_views(stacked, n: int):
     """A tree stacked along a leading 'layers' axis -> n per-layer trees of
-    views."""
+    views, one ``unbind`` per leaf: its backward stacks the n layers'
+    gradients in one pass, where a view per ``t[i]`` would add a zero-filled
+    copy of the whole stacked leaf for each layer."""
+    def split(t):
+        return ({k: split(v) for k, v in t.items()}
+                if isinstance(t, dict) else t.unbind(0))
+
     def pick(t, i):
         return ({k: pick(v, i) for k, v in t.items()}
                 if isinstance(t, dict) else t[i])
-    return [pick(stacked, i) for i in range(n)]
+    parts = split(stacked)
+    return [pick(parts, i) for i in range(n)]
 
 
 # --------------------------------------------------------------------------- #
@@ -135,8 +168,8 @@ def apply_norm(cfg, p, x):
 def activation_fn(name: str):
     if name == "silu":
         return F.silu
-    if name == "gelu":
-        return F.gelu
+    if name == "gelu":          # jax.nn.gelu's default: the tanh form
+        return lambda x: F.gelu(x, approximate="tanh")
     if name == "squared_relu":
         return lambda x: torch.relu(x).square()
     raise ValueError(f"unknown activation {name}")
@@ -167,6 +200,34 @@ def apply_rope(x, cos, sin):
     cos, sin = cos[..., None, :], sin[..., None, :]             # head axis
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                      dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Loss
+# --------------------------------------------------------------------------- #
+def cross_entropy_loss(logits, labels, z_loss_weight: float = 0.0,
+                       ignore_index: int = -100):
+    """Mean CE over non-ignored tokens, with an optional z-loss regularizer
+    (the weight times the mean squared log-partition).
+
+    logits: (..., V) any float dtype, taken in fp32; labels: (...) ints.
+    The mean's denominator is the count of non-ignored tokens, at least 1.
+    """
+    logits = logits.float()
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, -1)
+    ll = torch.take_along_dim(logits, safe[..., None], -1)[..., 0]
+    ce = (lse - ll) * mask
+    n = mask.sum()
+    denom = n.clamp_min(1)
+    loss = ce.sum() / denom
+    metrics = {"ce_loss": loss, "tokens": n}
+    if z_loss_weight:
+        zl = z_loss_weight * (lse.square() * mask).sum() / denom
+        metrics["z_loss"] = zl
+        loss = loss + zl
+    return loss, metrics
 
 
 # --------------------------------------------------------------------------- #

@@ -17,8 +17,9 @@ def mlp_specs(cfg, d_ff: int) -> Dict[str, ParamSpec]:
 
 def mlp(cfg, p, x):
     act = activation_fn(cfg.activation)
+    dt = x.dtype
     if cfg.gated_mlp:
-        h = act(x @ p["wg"]) * (x @ p["wu"])
+        h = act(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
     else:
-        h = act(x @ p["wu"])
-    return h @ p["wd"]
+        h = act(x @ p["wu"].to(dt))
+    return h @ p["wd"].to(dt)

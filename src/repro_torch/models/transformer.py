@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense and MoE families: forward, prefill into a KV
-cache, decode.
+"""Decoder-only LM, dense and MoE families: forward, loss, prefill into a
+KV cache, decode.
 
 The torch counterpart of ``repro.models.transformer.DecoderOnlyLM``.  The
 parameter tree keeps the JAX package's layout (``param_specs`` stacks the
@@ -8,6 +8,13 @@ of ``layer_groups``: deepseek's first dense layer in ``g0``, its MoE layers
 in ``g1``) so that parameters carry over path for path; at run time the
 groups become one per-layer list (``split_layers``) walked by a Python loop
 in place of ``lax.scan``.
+
+``loss`` takes the JAX layout itself (float32 training parameters, stacked
+groups as leaf tensors), splits it into per-layer views inside each call,
+and runs every layer under one activation checkpoint
+(``torch.utils.checkpoint``, non-reentrant: the layer's forward runs again
+in the backward), the counterpart of the JAX package's
+``jax.checkpoint(policy=nothing_saveable)`` around its scanned layer body.
 
 The KV cache is a full-length bf16 buffer per layer, written in place.
 Hybrid (SSM) layers and ring-buffer (sliding-window) caches are later
@@ -18,12 +25,14 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (COMPUTE_DTYPES, ParamSpec, apply_norm,
-                                       init_params, layer_views, norm_spec,
-                                       pad_vocab, softcap, stack_specs,
-                                       take_embedding)
+                                       cross_entropy_loss, init_params,
+                                       layer_views, norm_spec, pad_vocab,
+                                       softcap, stack_specs, take_embedding,
+                                       trainable)
 from repro_torch.models.mlp import mlp
 from repro_torch.models.moe import moe_forward, moe_or_mlp_specs
 
@@ -97,6 +106,13 @@ class DecoderOnlyLM:
         return self.split_layers(init_params(
             self.param_specs(), generator, dtype=self.dtype, device=device))
 
+    def init_train_params(self, generator: torch.Generator,
+                          device) -> Dict[str, Any]:
+        """Random float32 training parameters in the JAX layout (stacked
+        groups ``g<i>``), each leaf requiring a gradient."""
+        return trainable(init_params(self.param_specs(), generator,
+                                     dtype=torch.float32, device=device))
+
     # ----------------------------------------------------------------- block
     def _ffn(self, i: int, lp, x):
         """Residual + the FFN of layer i (dense MLP or MoE), and the MoE
@@ -116,28 +132,52 @@ class DecoderOnlyLM:
         cfg = self.cfg
         x = apply_norm(cfg, params["final_norm"], x)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = softcap(x @ head, cfg.logit_softcap)
+        logits = softcap(x @ head.to(x.dtype), cfg.logit_softcap)
         if self.vp != cfg.vocab_size:                 # mask padded vocab rows
             pad = torch.arange(self.vp, device=x.device) >= cfg.vocab_size
             logits = logits.masked_fill(pad, -1e30)
         return logits
 
+    def _layer(self, i: int, lp, x, positions):
+        """Layer i of the forward pass: (x, the MoE aux loss or None)."""
+        h = apply_norm(self.cfg, lp["ln1"], x)
+        return self._ffn(i, lp, x + attn.attention(
+            self.cfg, lp["attn"], h, positions, causal=True,
+            window_eff=self.cfg.window))
+
     # --------------------------------------------------------------- forward
-    def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Teacher-forced logits (B, S, V) and the summed MoE aux loss."""
+    def forward(self, params, batch, *, remat: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced logits (B, S, V) and the summed MoE aux loss.
+        ``remat``: each layer under one activation checkpoint."""
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
         x = self._embed(params, tokens)
         aux = torch.zeros((), device=x.device)
         for i, lp in enumerate(params["layers"]):
-            h = apply_norm(self.cfg, lp["ln1"], x)
-            x, a = self._ffn(i, lp, x + attn.attention(
-                self.cfg, lp["attn"], h, positions, causal=True,
-                window_eff=self.cfg.window))
+            if remat:
+                x, a = checkpoint(self._layer, i, lp, x, positions,
+                                  use_reentrant=False)
+            else:
+                x, a = self._layer(i, lp, x, positions)
             if a is not None:
                 aux = aux + a
         return self._logits(params, x), aux
+
+    def loss(self, params, batch):
+        """(loss + MoE aux, metrics) for params in the JAX layout (stacked
+        groups), split into per-layer views here, each layer under an
+        activation checkpoint; batch: tokens and labels (B, S).  CE with
+        z-loss at ``z_loss_weight`` (1e-4 unless set on the model), as the
+        JAX model's ``loss``."""
+        logits, aux = self.forward(self.split_layers(params), batch,
+                                   remat=True)
+        loss, metrics = cross_entropy_loss(
+            logits, batch["labels"],
+            z_loss_weight=getattr(self, "z_loss_weight", 1e-4))
+        metrics["aux_loss"] = aux
+        return loss + aux, metrics
 
     # ---------------------------------------------------------------- decode
     def init_cache(self, batch: int, device,

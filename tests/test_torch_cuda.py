@@ -6,7 +6,9 @@ the file imports no JAX, so it runs on a machine that has none:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: fp32 2e-5, bf16 2e-2 (the JAX package's kernel tolerances;
-the grouped GEMM's atol grows with its depth d as sqrt(d)); the WKV6
+the grouped GEMM's atol grows with its depth d as sqrt(d); the backward
+kernels' gradients, sums over many keys or rows, relative to each
+gradient's largest magnitude); the WKV6
 recurrence 5e-4 fp32, 5e-2 bf16 (the JAX package's WKV tolerances), plus
 one bf16 step (2**-7 relative) on a bf16 y: both sides round the same fp32
 sum once, and a sum on a rounding boundary lands one step apart, which
@@ -17,15 +19,23 @@ import pytest
 import torch
 
 from repro_torch.configs import get_reduced_config
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
+                                                        flash_attention_fwd)
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
+from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
-from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd, rmsnorm_fwd
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.rwkv6_wkv.kernel import wkv6_fwd
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
 from repro_torch.models import build_model
+from repro_torch.models.common import tree_leaves
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 CASES = {
@@ -390,3 +400,193 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
             lc, cc = model.decode_step(params, tok, cc)
             lg, cg = model.decode_step(on_card, tok.to(cuda), cg)
             _close(lg, lc, 2e-3)
+
+
+
+# ------------------------------------------------------------- backwards
+def _rel(a, b, tol, what=""):
+    """max |a - b| within tol of max |b|, or of 1 where the gradient is
+    smaller: one that is zero by construction (dq where each query sees a
+    single key, so dS = P (dP - delta) = 0) holds only rounding noise."""
+    torch.cuda.synchronize()
+    err = float((a.float() - b.float()).abs().max())
+    scale = max(float(b.float().abs().max()), 1.0)
+    assert err <= tol * scale, f"{what}: {err:.3e} > {tol} x {scale:.3e}"
+
+
+BWD_CASES = {  # (causal, window, q_offset, Sk - Sq)
+    "causal": (True, 0, 0, 0),
+    "window32": (True, 32, 0, 0),
+    "noncausal": (False, 0, 0, 0),
+    "offset": (True, 16, 40, 40),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("S", [1, 65, 200])
+def test_flash_backward_matches_plain_and_autograd(cuda, S, D, dtype, case,
+                                                   G):
+    """The forward's log-sum-exp against the plain one; dq, dk, dv of the
+    backward kernels against the plain backward from the same (o, lse), and
+    against autograd of the plain forward in fp32 (bf16: P rounds to bf16
+    before dV in both, the inputs are the same bf16 values)."""
+    causal, window, off, extra = BWD_CASES[case]
+    kvH = 2
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    q, do = (torch.randn(2, S, kvH * G, D, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, S + extra, kvH, D, generator=g,
+                        device=cuda).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=off)
+    o, lse = flash_attention_fwd(q, k, v, **kw, return_lse=True)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, **kw, return_lse=True)
+    _close(lse, lse_ref, 1e-5, atol=1e-4)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip("qkv", grads,
+                          flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)):
+        assert a.dtype == dtype and a.shape == b.shape
+        _rel(a, b, tol, f"d{name} vs plain backward")
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_ref(*leaves, **kw)
+    out.backward(do.float())
+    for name, a, t in zip("qkv", grads, leaves):
+        _rel(a, t.grad, tol, f"d{name} vs autograd")
+
+
+@pytest.mark.cuda
+def test_flash_autograd_function_runs_the_kernels(cuda):
+    """With a gradient needed, the op runs the forward kernel with its lse
+    and the backward kernel once; a mask, or a query that sees no key,
+    is refused."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 96, 8, 64, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, 96, 2, 64, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_f, n_b = flash_attention_fwd.launches, flash_attention_bwd.launches
+    out = fa_ops.flash_attention(*leaves, causal=True, window=24)
+    do = torch.randn_like(out)
+    out.backward(do)
+    assert flash_attention_fwd.launches == n_f + 1
+    assert flash_attention_bwd.launches == n_b + 1
+    o, lse = flash_attention_fwd(q, k, v, causal=True, window=24,
+                                 return_lse=True)
+    for t, want in zip(leaves, flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal=True, window=24)):
+        assert torch.equal(t.grad, want)
+    with pytest.raises(NotImplementedError, match="mask"):
+        fa_ops.flash_attention(*leaves, torch.ones(96, 96, dtype=torch.bool,
+                                                   device=cuda))
+    with pytest.raises(ValueError, match="every query to see a key"):
+        fa_ops.flash_attention(*leaves, causal=True, q_offset=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 4096), (5, 2560), (300, 128),
+                                   (2, 3, 100), (33, 16), (7, 5000),
+                                   (3, 8192)])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_matches_plain(cuda, dtype, wdtype, shape):
+    """dx and dw against the plain backward (and autograd of the plain
+    forward for fp32); dw the same bits in two runs."""
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x, dy = (torch.randn(*shape, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    w = torch.randn(shape[-1], generator=g, device=cuda).to(wdtype)
+    n = rmsnorm_bwd.launches
+    dx, dw = rmsnorm_bwd(x, w, dy)
+    assert rmsnorm_bwd.launches == n + 1
+    assert dx.dtype == dtype and dw.dtype == wdtype
+    rx, rw = rmsnorm_bwd_ref(x, w, dy)
+    _rel(dx, rx, 2e-5 if dtype == torch.float32 else 2e-2, "dx")
+    _rel(dw, rw, 2e-5 if wdtype == torch.float32 else 2e-2, "dw")
+    assert torch.equal(rmsnorm_bwd(x, w, dy)[1], dw)
+    if dtype == wdtype == torch.float32:
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        rmsnorm_ref(xl, wl).backward(dy)
+        _rel(dx, xl.grad, 2e-5, "dx vs autograd")
+        _rel(dw, wl.grad, 2e-5, "dw vs autograd")
+
+
+@pytest.mark.cuda
+def test_rmsnorm_autograd_function_runs_the_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(64, 4096, generator=g, device=cuda).bfloat16()
+    w = torch.randn(4096, generator=g, device=cuda)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    n_f, n_b = rmsnorm_fwd.launches, rmsnorm_bwd.launches
+    y = rms_ops.rmsnorm(xl, wl)
+    dy = torch.randn_like(y)
+    y.backward(dy)
+    assert (rmsnorm_fwd.launches, rmsnorm_bwd.launches) == (n_f + 1, n_b + 1)
+    dx, dw = rmsnorm_bwd(x, w, dy)
+    assert torch.equal(xl.grad, dx) and torch.equal(wl.grad, dw)
+    with pytest.raises(NotImplementedError, match="residual"):
+        rms_ops.rmsnorm(xl, wl, xl)
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_gradients(cuda):
+    """The grouped GEMM and WKV6 kernels have no backward: with a gradient
+    needed they raise instead of returning a detached output; without one
+    (inference) they run."""
+    x = torch.randn(2, 8, 16, device=cuda)
+    w = torch.randn(2, 16, 4, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        moe_ops.moe_gemm(x, w)
+    with torch.no_grad():
+        assert moe_ops.moe_gemm(x, w).shape == (2, 8, 4)
+    r, k, v, wl, u, s0 = _wkv_inputs(cuda, 1, 4, 2, 16, torch.float32, True)
+    u.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        wkv_ops.wkv6(r, k, v, wl, u, s0)
+    with torch.inference_mode():
+        assert wkv_ops.wkv6(r, k, v, wl, u, s0)[0].shape == r.shape
+
+
+def _to_leaves(tree, device):
+    """A copy of a parameter tree on ``device``, each leaf a new autograd
+    leaf."""
+    if isinstance(tree, dict):
+        return {k: _to_leaves(v, device) for k, v in tree.items()}
+    return tree.detach().to(device).requires_grad_()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.1-8b", "qwen3-4b"])
+def test_reduced_training_step_on_card_matches_cpu(cuda, arch):
+    """fp32 loss and every gradient leaf through the forward and backward
+    kernels equal the CPU's plain path on the same parameters and batch
+    (fp32 sums in another order through 4 layers: 1e-4 of each leaf's
+    largest magnitude), with each kernel launched as often as the layers
+    and the per-layer checkpoint's recompute imply."""
+    cfg = get_reduced_config(arch).replace(compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init_train_params(torch.Generator().manual_seed(0), "cpu")
+    on_card = _to_leaves(params, cuda)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48)))
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -100
+    lc, _ = model.loss(params, {"tokens": toks, "labels": labels})
+    lc.backward()
+    kernels = (flash_attention_fwd, flash_attention_bwd, rmsnorm_fwd,
+               rmsnorm_bwd)
+    for fn in kernels:
+        _build.reset_counts(fn)
+    lg, _ = model.loss(on_card, {"tokens": toks.to(cuda),
+                                 "labels": labels.to(cuda)})
+    lg.backward()
+    torch.cuda.synchronize()
+    L, norms = cfg.n_layers, 4 if cfg.qk_norm else 2
+    assert [fn.launches for fn in kernels] == \
+        [2 * L, L, 2 * norms * L + 1, norms * L + 1]
+    assert abs(float(lg.detach()) - float(lc.detach())) <= 1e-5 * float(lc.detach())
+    for a, b in zip(tree_leaves(on_card), tree_leaves(params)):
+        _rel(a.grad.cpu(), b.grad, 1e-4)

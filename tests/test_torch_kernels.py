@@ -24,7 +24,8 @@ from repro.kernels.rmsnorm import rmsnorm_ref as jax_rms_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
-from repro_torch.kernels.flash_attention.kernel import (flash_attention_fwd,
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
+                                                        flash_attention_fwd,
                                                         flash_path)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.moe_gemm import moe_gemm
@@ -32,7 +33,8 @@ from repro_torch.kernels.moe_gemm import kernel as moe_kernel
 from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd, moe_gemm_path
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd, rmsnorm_path
+from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_bwd, rmsnorm_fwd,
+                                                rmsnorm_path)
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_wkv.kernel import wkv6_fwd, wkv6_path
 
@@ -237,6 +239,38 @@ def test_entry_point_takes_the_chosen_path_by_value(source, entry, module):
     assert params.split(",")[-1].split() == ["int", "path"]
     assert module._ARGTYPES[-1] is ctypes.c_int
     assert len(module._ARGTYPES) == len(params.split(","))
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+            "int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("source,entry,module", [
+    ("flash_attention_bwd.cu", "flash_attention_bwd", flash_kernel),
+    ("rmsnorm.cu", "rmsnorm_bwd", rms_kernel)])
+def test_backward_entry_points_bind_every_parameter(source, entry, module):
+    """The ctypes binding of each backward entry point has one type per C
+    parameter, c_void_p for every pointer (stream included): a pointer
+    bound as an int would be cut to 32 bits."""
+    src = (_build.CSRC / source).read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
+    ctypes_of = [_C_TYPES[" ".join(p.split()[:-1])] for p in params.split(",")]
+    assert module._BWD_ARGTYPES == ctypes_of
+
+
+@pytest.mark.parametrize("fn", [flash_attention_bwd, rmsnorm_bwd])
+def test_backward_wrappers_count_once_a_call_and_reject_cpu(fn):
+    assert set(fn.launches_by_path) == {"simt"} and fn.launches == 0
+    x = torch.zeros(1, 8, 2, 16)
+    if fn is flash_attention_bwd:
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, x, x, x, torch.zeros(1, 2, 8), x, causal=True)
+    else:
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, torch.ones(16), x)
+    assert fn.launches == 0
 
 
 @pytest.mark.parametrize("fn,fast", [(flash_attention_fwd, "wgmma"),

@@ -4,16 +4,18 @@
 they import neither ``jax`` nor anything of the JAX package ``repro`` (not
 even its stdlib-only modules); the port's modules compute attention and the
 expert GEMMs with its own kernels, never with a library's fused operator
-(the yardsticks live in ``chip_smoke.py`` only); and the entry point runs on
-CUDA unless told otherwise, raising where there is none.
+(the yardsticks live in ``chip_smoke.py`` only); and the entry points run
+on CUDA unless told otherwise, raising where there is none.
 """
 import ast
+import json
+import os
 from pathlib import Path
 
 import pytest
 import torch
 
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -115,3 +117,38 @@ def test_serve_entry_point_serves_rwkv_on_cpu_when_asked(capsys):
                        "--new-tokens", "3"]) == 0
     assert "rwkv6-3b-reduced device=cpu generated (2, 3) tokens" in \
         capsys.readouterr().out
+
+
+def test_train_entry_point_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available; the check needs a host without it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "llama3.1-8b", "--reduced", "--steps", "2",
+                    "--checkpoint-dir", str(tmp_path)])
+
+
+def test_train_entry_point_runs_on_cpu_when_asked(tmp_path, capsys):
+    """The settings of tests/test_integration.py's first trainer test: the
+    loss falls by at least 0.2 in 30 steps."""
+    out = tmp_path / "metrics.json"
+    assert train.main(["--arch", "llama3.1-8b", "--reduced", "--steps", "30",
+                       "--lr", "3e-3", "--device", "cpu", "--global-batch",
+                       "8", "--seq-len", "64", "--checkpoint-every", "15",
+                       "--checkpoint-dir", str(tmp_path / "ck"),
+                       "--metrics-out", str(out)]) == 0
+    assert "arch=llama3.1-8b-reduced device=cpu step 29" in \
+        capsys.readouterr().out
+    log = json.loads(out.read_text())
+    assert log[-1]["loss"] < log[0]["loss"] - 0.2
+    assert sorted(os.listdir(tmp_path / "ck")) == \
+        ["LATEST", "step_00000015", "step_00000030"]
+
+
+def test_train_entry_point_cuts_depth_and_runs_the_hook(tmp_path, capsys):
+    assert train.main(["--arch", "qwen3-4b", "--reduced", "--layers", "2",
+                       "--steps", "4", "--device", "cpu", "--global-batch",
+                       "2", "--seq-len", "16", "--checkpoint-every", "0",
+                       "--checkpoint-dir", str(tmp_path), "--use-case",
+                       "gpu-red"]) == 0
+    out = capsys.readouterr().out
+    assert "lit-silicon[gpu-red]: converged caps" in out
