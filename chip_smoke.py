@@ -40,14 +40,17 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    full-width cut, kernel path against plain path;
 6. the device time alone (torch.profiler) of RMSNorm and WKV6, the new
    kernels and the ones kept beside them (L2 flushed), and of the two
-   backward kernels, their plain versions and the library's backward, after
-   the served and trained runs, whose host timings a profiler session would
-   slow;
+   backward kernels (flash's wgmma kernels and the simt ones kept beside
+   them), their plain versions and the library's backward, after the served
+   and trained runs, whose host timings a profiler session would slow;
 7. the JSON line of the kernels, then the JSON line of the device.
 
 Phase 2 also holds the two backward kernels (flash attention's dQ, dK, dV
-from the forward's log-sum-exp; RMSNorm's dx, dw) against their plain
-versions and against autograd of the plain forward.
+from the forward's log-sum-exp, "wgmma" for bf16 D 64/128 and "simt" for
+the rest; RMSNorm's dx, dw) against their plain versions and against
+autograd of the plain forward; at flash's training shape it also holds the
+kept simt kernels to the plain backward and checks that the wgmma kernels
+give the same bits twice.
 
 It needs ``src/repro_torch`` beside it, and CUDA; without either it exits
 non-zero and prints no result.
@@ -72,6 +75,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
 from repro_torch.core.manager import ManagerConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd  # noqa: E402
@@ -130,7 +134,7 @@ KERNELS = [fa_ops.flash_attention_fwd, rms_ops.rmsnorm_fwd,
 # the kernel every served or trained launch of each wrapper must take
 SERVED_PATH = {"flash_attention_fwd": "wgmma", "rmsnorm_fwd": "vector",
                "moe_gemm_fwd": "wgmma", "wkv6_fwd": "split",
-               "flash_attention_bwd": "simt", "rmsnorm_bwd": "simt"}
+               "flash_attention_bwd": "wgmma", "rmsnorm_bwd": "simt"}
 # backward kernels against their plain backward (same inputs, same lse) and
 # against autograd of the plain forward: fp32 and bf16 relative to each
 # gradient's largest magnitude (sums over many keys or rows; in bf16 the
@@ -152,7 +156,8 @@ TRAIN_TOL = {"loss": 1e-2, "max_rel": 5e-2, "mean_rel": 2e-2}
 # on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), at the shapes of phase 2:
 # printed in the log beside this run's times, never in the kernels line
 PREV_MS = {"flash_attention": {"ms": 0.5279},
-           "moe_gemm": {"ms": 0.4996, "decode_ms": 0.1501}}
+           "moe_gemm": {"ms": 0.4996, "decode_ms": 0.1501},
+           "flash_attention_bwd": {"ms": 52.82}}
 
 
 def log(msg: str) -> None:
@@ -332,7 +337,9 @@ def build() -> None:
             elif "Compiling entry function" in line:   # the kernel, briefly
                 log("  " + line.split("'")[1].split("_cu_")[-1][:70])
             elif "C75" in line:       # ptxas: wgmma serialized, and why
-                log("  " + line.strip()[:160])
+                fn = line.split("function '")[-1].split("'")[0]
+                log("  " + line.strip()[:130] + " ["
+                    + fn.split("_cu_")[-1][:60] + "]")
 
 
 # --------------------------------------------------------------------------- #
@@ -777,6 +784,9 @@ def flash_bwd_checks(g) -> dict:
         lse_err = max_err(lse, lse_ref)
         grads, path = took(flash_attention_bwd, lambda: flash_attention_bwd(
             q, k, v, o, lse, do, **kw))
+        want = "wgmma" if dt == torch.bfloat16 and D in (64, 128) else "simt"
+        if path != want:
+            raise AssertionError(f"flash backward took {path}, not {want}")
         check_grads(f"B{B} Sq{Sq} Sk{Sk} H{H}/{kvH} D{D} {str(dt)[6:]} "
                     f"causal={causal} window={window} q_offset={off} [{path}]"
                     f" (lse max_abs_err {lse_err:.1e})", grads,
@@ -793,16 +803,28 @@ def flash_bwd_checks(g) -> dict:
     k, v = (torch.randn(B, S, kvH, D, generator=g, device=dev).to(dt)
             for _ in range(2))
     o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
-    grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    grads, path = took(flash_attention_bwd, lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, causal=True))
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    simt = fa_kernel._launch_bwd("simt", q, k, v, o, lse, do, causal=True,
+                                 window=0, q_offset=0)
     plain = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
     err = max(rel_err(a, b) for a, b in zip(grads, plain))
-    log(f"  main shape B{B} S{S} H{H}/{kvH} D{D} bf16 causal: max rel_err "
-        f"{err:.3e} against the plain backward (tol {BWD_TOL[dt]:g})")
-    if err > BWD_TOL[dt]:
+    simt_err = max(rel_err(a, b) for a, b in zip(simt, plain))
+    log(f"  main shape B{B} S{S} H{H}/{kvH} D{D} bf16 causal [{path}]: max "
+        f"rel_err {err:.3e} against the plain backward (tol "
+        f"{BWD_TOL[dt]:g}), the same bits twice: {same}; the kept simt "
+        f"kernels {simt_err:.3e}")
+    if path != "wgmma" or err > BWD_TOL[dt] or simt_err > BWD_TOL[dt] \
+            or not same:
         raise AssertionError("flash backward, main shape")
-    del plain
+    del plain, again, simt
     ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
                                              causal=True), iters=5)
+    simt_ms = cuda_ms(lambda: fa_kernel._launch_bwd(
+        "simt", q, k, v, o, lse, do, causal=True, window=0, q_offset=0),
+        iters=2, warmup=1)
     plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(
         q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
     lib = sdpa_backward(q, k, v, do)
@@ -811,15 +833,17 @@ def flash_bwd_checks(g) -> dict:
     flops = 5 * B * H * S * S * D          # 5 products, the causal half
     b_ms, b_by = bound(nbytes, flops, dt)
     log(f"  main shape: kernel {ms:.3f} ms ({ms / b_ms:.1f}x its bound, "
-        f"{ms / lib_ms:.1f}x sdpa's backward), plain {plain_ms:.3f} ms, "
-        f"sdpa backward {lib_ms:.3f} ms, bound {b_ms * 1e3:.1f} us ({b_by}: "
+        f"{ms / lib_ms:.2f}x sdpa's backward; before the redesign "
+        f"{PREV_MS['flash_attention_bwd']['ms']} ms in PERF.md), kept simt "
+        f"kernels {simt_ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa backward "
+        f"{lib_ms:.3f} ms, bound {b_ms * 1e3:.1f} us ({b_by}: "
         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP); {CARD}")
     return dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                 replaces="src/repro/models/attention.py:152",
                 replaces_note="no TPU kernel: XLA autodiff of sdpa_flash",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, simt_ms=simt_ms)
 
 
 def sdpa_backward(q, k, v, do):
@@ -1386,9 +1410,10 @@ def train_kernel_vs_plain(args, B: int = 2, S: int = 2048) -> None:
 # --------------------------------------------------------------------------- #
 def backward_device_times(g, rows: dict, rounds: int = 3) -> None:
     """Device time alone of the two backward kernels at their training
-    shapes, of their plain versions and of the library's backward
-    (autograd of F.scaled_dot_product_attention and of F.rms_norm), in
-    ``rounds`` alternating rounds, their mean into the rows."""
+    shapes (flash: the wgmma kernels and the simt ones kept beside them), of
+    their plain versions and of the library's backward (autograd of
+    F.scaled_dot_product_attention and of F.rms_norm), in ``rounds``
+    alternating rounds, their mean into the rows."""
     dev, bf = "cuda", torch.bfloat16
     q, do = (torch.randn(2, 4096, 32, 128, generator=g, device=dev).to(bf)
              for _ in range(2))
@@ -1402,6 +1427,9 @@ def backward_device_times(g, rows: dict, rounds: int = 3) -> None:
     timed = [   # (row, key, fn, kernels a call)
         (fa, "device_ms", lambda: flash_attention_bwd(
             q, k, v, o, lse, do, causal=True), 3),
+        (fa, "simt_device_ms", lambda: fa_kernel._launch_bwd(
+            "simt", q, k, v, o, lse, do, causal=True, window=0, q_offset=0),
+         3),
         (fa, "plain_device_ms", lambda: flash_attention_bwd_ref(
             q, k, v, o, lse, do, causal=True), 0),
         (fa, "library_device_ms", sdpa_backward(q, k, v, do), 0),

@@ -130,6 +130,17 @@ __device__ __forceinline__ int warpgroup_index() {
   return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
 }
 
+// Registers move between warpgroups (setmaxnreg): a producer gives its
+// spare ones up, the consumers that hold wgmma accumulators take them.  N is
+// a multiple of 8 in [24, 256]; every thread of the warpgroup executes it,
+// in a branch of the role that never rejoins the other roles' code.
+template <int N> __device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N> __device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
 // -------------------------------------------------------------------- TMA
 // `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
 // aligned, completing on `bar`

@@ -11,8 +11,10 @@ kernel: ``"wgmma"`` (bf16, D 64 or 128: tensor cores, TMA) and ``"simt"``
 
 ``flash_attention_bwd`` is the port's backward (the TPU kernel has none):
 dQ, dK and dV from q, k, v, the output, its log-sum-exp and dO, in one call
-of three kernels on the CUDA cores, counted once per call
-(``flash_attention_bwd.launches``, path ``"simt"``).
+of three kernels, counted once per call (``flash_attention_bwd.launches``)
+and by path (``flash_attention_bwd.launches_by_path``, ``flash_bwd_path``'s
+choice): ``"wgmma"`` (bf16, D 64 or 128: tensor cores, TMA) and ``"simt"``
+(fp32, D 16 and 32: CUDA cores).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
              _I, _F, _P, _I]
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 10 + [_F, _P]
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 10 + [_F, _P, _I]
 HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 
@@ -39,17 +41,13 @@ def head_strides(t: torch.Tensor) -> tuple:
             st[2] if H > 1 else D)
 
 
-def flash_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel that takes these inputs: ``"wgmma"`` for bf16 with D 64 or
-    128, ``"simt"`` for the rest (fp32, D 16 and 32).
-
-    The wgmma kernel reads q, k and v through TMA, which needs 16-byte
-    aligned bases and strides that are multiples of 16 bytes; inputs that
-    break this raise ValueError (they are not sent elsewhere).
-    """
+def _tma_path(q: torch.Tensor, named: dict) -> str:
+    """``"wgmma"`` where q is bf16 with D 64 or 128 and TMA can read every
+    tensor of ``named`` ({name: (B, S, H, D) tensor}), ``"simt"`` where q is
+    not; ValueError where some tensor breaks TMA's rules."""
     if q.dtype != torch.bfloat16 or q.shape[-1] not in WGMMA_HEAD_DIMS:
         return "simt"
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in named.items():
         sb, ss, sh = head_strides(t)
         if t.stride(3) != 1 or t.data_ptr() % 16 or (sb | ss | sh) % 8:
             raise ValueError(
@@ -58,6 +56,25 @@ def flash_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
                 f"read by TMA: it needs a unit stride on D, a 16-byte aligned "
                 f"base and (batch, seq, head) strides of whole 16 bytes")
     return "wgmma"
+
+
+def flash_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes these inputs: ``"wgmma"`` for bf16 with D 64 or
+    128, ``"simt"`` for the rest (fp32, D 16 and 32).
+
+    The wgmma kernel reads q, k and v through TMA, which needs 16-byte
+    aligned bases and strides that are multiples of 16 bytes; inputs that
+    break this raise ValueError (they are not sent elsewhere).
+    """
+    return _tma_path(q, {"q": q, "k": k, "v": v})
+
+
+def flash_bwd_path(q, k, v, do) -> str:
+    """The backward kernels that take these inputs, by ``flash_path``'s
+    rule: ``"wgmma"`` for bf16 with D 64 or 128 (q, k, v and dO read by
+    TMA), ``"simt"`` for fp32 and D 16 and 32; ValueError for bf16 D 64/128
+    inputs TMA cannot read."""
+    return _tma_path(q, {"q": q, "k": k, "v": v, "do": do})
 
 
 def flash_attention_fwd(q, k, v, mask=None, *, causal: bool = False,
@@ -129,7 +146,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     the forward.  No explicit mask.  The gradients come back contiguous in
     q's dtype, dk and dv summed over each kv head's group of query heads.
     For a row that sees no key the result follows the plain backward's
-    convention (``flash_attention_bwd_ref``), not autograd's."""
+    convention (``flash_attention_bwd_ref``: P is 1 for every key), not
+    autograd's; the simt kernels give it only for the keys of the query
+    tiles they visit."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"expected q, o, do (B,Sq,H,D) and k, v (B,Sk,kvH,D); "
@@ -153,23 +172,39 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
         raise ValueError(f"unsupported shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)} (D in {HEAD_DIMS}, H % kvH == 0)")
     q, k, v, o, lse, do = (t.contiguous() for t in given)
+    return _launch_bwd(flash_bwd_path(q, k, v, do), q, k, v, o, lse, do,
+                       causal=causal, window=window, q_offset=q_offset)
+
+
+def _launch_bwd(path: str, q, k, v, o, lse, do, *, causal: bool, window: int,
+                q_offset: int):
+    """(dq, dk, dv) from kernels ``path`` on the contiguous inputs that
+    ``flash_attention_bwd`` checked; kernels that cannot take them fail at
+    launch.  chip_smoke.py times the simt kernels through it."""
+    B, Sq, H, D = q.shape
+    Sk, kvH = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if Sq == 0 or Sk == 0 or B * H == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty_like(lse)
+    # simt: delta (B, H, Sq); wgmma: lse log2 e and delta, (B, H, Sp) each,
+    # rows padded to Sp, a multiple of the 128 queries of a dQ block
+    rows = Sq if path == "simt" else -(-Sq // 128) * 128
+    scratch = torch.empty((1 if path == "simt" else 2) * B * H * rows,
+                          dtype=torch.float32, device=q.device)
     fn = _build.entry("flash_attention_bwd", "flash_attention_bwd",
                       _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), _build.DTYPE_CODES[q.dtype], B, Sq,
              Sk, H, kvH, D, int(causal), int(window), int(q_offset),
-             D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+             D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+             _build.PATHS.index(path))
     _build.check("flash_attention_bwd", err, "flash_attention_bwd")
-    _build.count_launch(flash_attention_bwd, "simt")
+    _build.count_launch(flash_attention_bwd, path)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_path = {"simt": 0}
+flash_attention_bwd.launches_by_path = {"wgmma": 0, "simt": 0}

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs import get_reduced_config
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
                                                         flash_attention_fwd)
@@ -431,9 +432,10 @@ BWD_CASES = {  # (causal, window, q_offset, Sk - Sq)
 def test_flash_backward_matches_plain_and_autograd(cuda, S, D, dtype, case,
                                                    G):
     """The forward's log-sum-exp against the plain one; dq, dk, dv of the
-    backward kernels against the plain backward from the same (o, lse), and
-    against autograd of the plain forward in fp32 (bf16: P rounds to bf16
-    before dV in both, the inputs are the same bf16 values)."""
+    backward kernels (bf16 D 64/128: the wgmma kernels, the rest the simt
+    ones) against the plain backward from the same (o, lse), and against
+    autograd of the plain forward in fp32 (bf16: P rounds to bf16 before dV
+    in both, the inputs are the same bf16 values)."""
     causal, window, off, extra = BWD_CASES[case]
     kvH = 2
     g = torch.Generator(device=cuda).manual_seed(S + D)
@@ -445,7 +447,10 @@ def test_flash_backward_matches_plain_and_autograd(cuda, S, D, dtype, case,
     o, lse = flash_attention_fwd(q, k, v, **kw, return_lse=True)
     o_ref, lse_ref = flash_attention_ref(q, k, v, **kw, return_lse=True)
     _close(lse, lse_ref, 1e-5, atol=1e-4)
-    grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    grads, path = _path(flash_attention_bwd, lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, **kw))
+    assert path == ("wgmma" if dtype == torch.bfloat16 and D in (64, 128)
+                    else "simt")
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     for name, a, b in zip("qkv", grads,
                           flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)):
@@ -456,6 +461,75 @@ def test_flash_backward_matches_plain_and_autograd(cuda, S, D, dtype, case,
     out.backward(do.float())
     for name, a, t in zip("qkv", grads, leaves):
         _rel(a, t.grad, tol, f"d{name} vs autograd")
+
+
+def _bwd_inputs(cuda, B, Sq, Sk, H, kvH, D, seed, **kw):
+    """bf16 q, k, v, dO from a seed and the forward kernel's o and lse."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(B, Sq, H, D, generator=g, device=cuda).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, kvH, D, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, v, **kw, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("S", [1000, 2100])
+def test_flash_backward_wgmma_long_grouped_and_deterministic(cuda, S, G, D):
+    """Several wraps of the three-stage rings (16 and 33 query tiles of 64
+    for each of G heads) and a ragged tail, causal, GQA groups 4 and 8:
+    against the plain backward and autograd of the plain forward, and the
+    same bits on a second run (each gradient is summed by one block in a
+    fixed order)."""
+    kw = dict(causal=True)
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 1, S, S, 2 * G, 2, D, S + G, **kw)
+    grads, path = _path(flash_attention_bwd, lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, **kw))
+    assert path == "wgmma"
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    flash_attention_ref(*leaves, **kw).backward(do.float())
+    for name, a, b, t in zip("qkv", grads, flash_attention_bwd_ref(
+            q, k, v, o, lse, do, **kw), leaves):
+        _rel(a, b, 2e-2, f"d{name} vs plain backward")
+        _rel(a, t.grad, 2e-2, f"d{name} vs autograd")
+    for a, b in zip(grads, flash_attention_bwd(q, k, v, o, lse, do, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(causal=True, window=0, q_offset=0),
+                                dict(causal=True, window=48, q_offset=100)])
+def test_flash_backward_kept_simt_kernel_matches_plain(cuda, kw):
+    """The CUDA-core kernels kept beside the wgmma ones, reached on bf16 D
+    128 through ``_launch_bwd``: the same gradients as the plain backward."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 2, 200, 300, 8, 2, 128, 5, **kw)
+    grads, path = _path(flash_attention_bwd, lambda: fa_kernel._launch_bwd(
+        "simt", q, k, v, o, lse, do, **kw))
+    assert path == "simt"
+    for name, a, b in zip("qkv", grads,
+                          flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)):
+        _rel(a, b, 2e-2, f"d{name} vs plain backward")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("kw", [dict(causal=True, q_offset=-70),
+                                dict(causal=False, window=16, q_offset=100)])
+def test_flash_backward_wgmma_rows_that_see_no_key(cuda, kw, D):
+    """Rows before position 0 (causal) or whose window starts past the last
+    key: lse -1e30, P 1 for every key, as the plain backward computes them
+    (the autograd function refuses such inputs)."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 2, 200, 130, 4, 2, D, 6, **kw)
+    assert bool((lse == -1e30).any())
+    grads, path = _path(flash_attention_bwd, lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, **kw))
+    assert path == "wgmma"
+    for name, a, b in zip("qkv", grads,
+                          flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)):
+        _rel(a, b, 2e-2, f"d{name} vs plain backward")
 
 
 @pytest.mark.cuda

@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
                                                         flash_attention_fwd,
+                                                        flash_bwd_path,
                                                         flash_path)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.moe_gemm import moe_gemm
@@ -185,6 +186,44 @@ def test_flash_path_by_dtype_head_size_and_layout(case):
         assert flash_path(q, k, v) == want
 
 
+FLASH_BWD_PATHS = {   # name: (q, k, v, do), the kernels that take them
+    "bf16 D128": (lambda: [torch.zeros(2, 64, h, 128, dtype=BF)
+                           for h in (8, 2, 2, 8)], "wgmma"),
+    "bf16 D64 G 1": (lambda: [torch.zeros(2, 65, 4, 64, dtype=BF)] * 4,
+                     "wgmma"),
+    "bf16 one token": (lambda: [torch.zeros(1, 1, 4, 64, dtype=BF)] * 4,
+                       "wgmma"),
+    "bf16 D32": (lambda: [torch.zeros(2, 64, 4, 32, dtype=BF)] * 4, "simt"),
+    "bf16 D16": (lambda: [torch.zeros(2, 64, 4, 16, dtype=BF)] * 4, "simt"),
+    "fp32 D128": (lambda: [torch.zeros(2, 64, 4, 128)] * 4, "simt"),
+    "fp32 D64 unaligned": (lambda: [_offset((2, 64, 4, 64),
+                                            torch.float32, 1)] * 4, "simt"),
+    "bf16 q unaligned": (lambda: [_offset((2, 64, 4, 128), BF, 4)]
+                         + [torch.zeros(2, 64, 4, 128, dtype=BF)] * 3,
+                         ValueError),
+    "bf16 do unaligned": (lambda: [torch.zeros(2, 64, 4, 64, dtype=BF)] * 3
+                          + [_offset((2, 64, 4, 64), BF, 1)], ValueError),
+    "bf16 seq stride of 8 bytes past 16": (
+        lambda: list(_fused_qkv(2, 64, 4, 2, 64, pad=4))
+        + [torch.zeros(2, 64, 4, 64, dtype=BF)], ValueError),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_BWD_PATHS))
+def test_flash_backward_path_by_dtype_head_size_and_layout(case):
+    """The backward follows the forward's rule: bf16 with D 64 or 128 goes
+    to the wgmma kernels, which TMA feeds (q, k, v and dO), fp32 and D 16/32
+    to the CUDA-core kernels; bf16 inputs TMA cannot read raise instead of
+    going elsewhere."""
+    make, want = FLASH_BWD_PATHS[case]
+    q, k, v, do = make()
+    if want is ValueError:
+        with pytest.raises(ValueError, match="cannot be read by TMA"):
+            flash_bwd_path(q, k, v, do)
+    else:
+        assert flash_bwd_path(q, k, v, do) == want
+
+
 MOE_PATHS = {     # name: (x, w), the kernel that takes them
     "bf16 aligned": (lambda: (torch.zeros(4, 8, 64, dtype=BF),
                               torch.zeros(4, 64, 24, dtype=BF)), "wgmma"),
@@ -230,15 +269,18 @@ def test_path_codes_match_the_c_enum():
     ("flash_attention.cu", "flash_attention_fwd", flash_kernel),
     ("moe_gemm.cu", "moe_gemm_fwd", moe_kernel),
     ("rmsnorm.cu", "rmsnorm_fwd", rms_kernel),
-    ("wkv6.cu", "wkv6_fwd", wkv_kernel)])
+    ("wkv6.cu", "wkv6_fwd", wkv_kernel),
+    ("flash_attention_bwd.cu", "flash_attention_bwd", flash_kernel)])
 def test_entry_point_takes_the_chosen_path_by_value(source, entry, module):
     """The C entry point's last parameter is the path the wrapper chose, an
     int passed by value, and the ctypes binding says so."""
     src = (_build.CSRC / source).read_text()
     params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
     assert params.split(",")[-1].split() == ["int", "path"]
-    assert module._ARGTYPES[-1] is ctypes.c_int
-    assert len(module._ARGTYPES) == len(params.split(","))
+    bound = module._BWD_ARGTYPES if entry.endswith("_bwd") \
+        else module._ARGTYPES
+    assert bound[-1] is ctypes.c_int
+    assert len(bound) == len(params.split(","))
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -262,7 +304,11 @@ def test_backward_entry_points_bind_every_parameter(source, entry, module):
 
 @pytest.mark.parametrize("fn", [flash_attention_bwd, rmsnorm_bwd])
 def test_backward_wrappers_count_once_a_call_and_reject_cpu(fn):
-    assert set(fn.launches_by_path) == {"simt"} and fn.launches == 0
+    """The flash backward counts its wgmma and simt kernels apart, RMSNorm's
+    its one path; a CPU tensor is refused before anything is counted."""
+    paths = {"wgmma", "simt"} if fn is flash_attention_bwd else {"simt"}
+    assert set(fn.launches_by_path) == paths and fn.launches == 0
+    assert set(fn.launches_by_path) <= set(_build.PATHS)
     x = torch.zeros(1, 8, 2, 16)
     if fn is flash_attention_bwd:
         with pytest.raises(ValueError, match="CUDA"):
