@@ -38,6 +38,15 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    tokens/s, peak memory, device-busy share; a checkpoint round trip of a
    reduced model on the card; then the loss and every gradient of a 2-layer
    full-width cut, kernel path against plain path;
+5b. FSDP training (ZeRO-3 over the ``data`` axis): one process per card
+   (``torch.multiprocessing``, NCCL), as many as the machine has (at most
+   8), through ``Trainer`` on the host mesh; at a world of 8 full-depth
+   llama3.1-8b, global batch 8 x S 4096, else phase 5's configuration; the
+   launches counted per rank as in phase 5, and at a world of 1 the loss of
+   each step held to phase 5's unsharded run; the world size, ms/step,
+   tokens/s, peak memory per card, device-busy share and the device time a
+   step spends in the collectives (torch.profiler: the device time under
+   c10d's ``nccl:*`` annotations, and the NCCL kernels');
 6. the device time alone (torch.profiler) of RMSNorm and WKV6, the new
    kernels and the ones kept beside them (L2 flushed), and of the two
    backward kernels (flash's wgmma kernels and the simt ones kept beside
@@ -59,6 +68,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -152,6 +163,14 @@ TRAIN = dict(arch="llama3.1-8b", layers=8, batch=2, seq=4096, steps=10,
 # difference to 5% of a leaf's largest gradient; a detached kernel output
 # would leave a leaf's gradient 100% off
 TRAIN_TOL = {"loss": 1e-2, "max_rel": 5e-2, "mean_rel": 2e-2}
+# the FSDP phase at a world of 1 against phase 5 (unsharded, same seed,
+# batches and steps): the gathers and reduce-scatters copy, and the loss,
+# the norm and AdamW take the same sums in the same order, so the losses
+# should be equal; 1e-3 of the loss allows for bf16 roundings that flip
+# where an operand lies in other memory (a cuBLAS choice), which AdamW's
+# sign-like first steps carry into every later loss
+FSDP_LOSS_TOL = 1e-3
+FSDP_TIMEOUT_S = 600
 # the redesigned kernels' times before their wgmma redesign, by this script
 # on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), at the shapes of phase 2:
 # printed in the log beside this run's times, never in the kernels line
@@ -1025,9 +1044,28 @@ def serve(args, arch: str) -> dict:
     return launches, by_path
 
 
-def device_profile(what: str, step_ms: float, fn, top: int = 6) -> None:
+def busy_ms(prof) -> float:
+    """The device's busy time in a profile: the union of its kernels' and
+    copies' spans (kernels on two streams, as NCCL's beside the step's,
+    count once where they overlap; the annotation ranges on the device
+    timeline, as c10d's ``nccl:*``, not at all)."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def device_profile(what: str, step_ms: float, fn, top: int = 6):
     """Device time by kernel over one call of fn (torch.profiler), and the
-    device's busy share of the unprofiled step time."""
+    device's busy share of the unprofiled step time; returns the profile
+    and the busy ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1037,16 +1075,19 @@ def device_profile(what: str, step_ms: float, fn, top: int = 6) -> None:
         torch.cuda.synchronize()
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(r[0] for r in rows)
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and e.self_device_time_total > 0]
+    busy = busy_ms(prof)
     log(f"{what} profile: device busy {busy:.2f} ms of {step_ms:.2f} ms "
         f"({100 * busy / step_ms:.1f}%, idle {100 - 100 * busy / step_ms:.1f}%)"
-        f" in {sum(r[1] for r in rows)} kernel launches; {CARD}")
+        f" in {sum(r[1] for r in rows)} kernel launches (their times summed "
+        f"{sum(r[0] for r in rows):.2f} ms); {CARD}")
     ours = ("fa_fwd", "fa_bwd", "moe_gemm", "rms_", "wkv6_")
     for n, (ms, count, key) in enumerate(sorted(rows, reverse=True)):
         if n < top or any(k in key for k in ours):   # and the port's kernels
             log(f"  {ms:8.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  "
                 f"x{count:<4d} {key[:90]}")
+    return prof, busy
 
 
 def _leaves(tree):
@@ -1259,7 +1300,7 @@ class GradientCheck:
 def train(args) -> tuple:
     """Train full-width llama3.1-8b cut to TRAIN["layers"] layers through
     ``Trainer`` with the Lit Silicon hook; returns (launch counts, counts by
-    path) of the trained steps."""
+    path, losses) of the trained steps."""
     cfg = get_config(TRAIN["arch"]).replace(n_layers=TRAIN["layers"])
     B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
     ck = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoints"
@@ -1334,7 +1375,7 @@ def train(args) -> tuple:
     del trainer, metrics
     torch.cuda.empty_cache()
     checkpoint_round_trip(ck / "reduced")
-    return launches, by_path
+    return launches, by_path, losses
 
 
 def checkpoint_round_trip(directory: Path) -> None:
@@ -1403,6 +1444,173 @@ def train_kernel_vs_plain(args, B: int = 2, S: int = 2048) -> None:
         raise AssertionError("training: kernel path and plain path disagree")
     del params, results, gk, gp
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# Phase 5b: FSDP training over the machine's cards
+# --------------------------------------------------------------------------- #
+def fsdp_setup(world: int) -> dict:
+    """At a world of 8, full-depth llama3.1-8b with global batch 8 x S 4096;
+    else phase 5's configuration."""
+    if world == 8:
+        return dict(TRAIN, layers=get_config(TRAIN["arch"]).n_layers,
+                    batch=8)
+    return dict(TRAIN)
+
+
+def fsdp_worker(rank: int, world: int, port: int, seed: int, card: str,
+                out: str) -> None:
+    """One rank of the FSDP phase (spawned); rank 0 prints and writes the
+    results to ``out``."""
+    global CARD
+    CARD = card
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.parallel.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    try:
+        _fsdp_run(rank, world, seed, mesh, out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _fsdp_run(rank, world, seed, mesh, out) -> None:
+    from torch.autograd import DeviceType
+    setup = fsdp_setup(world)
+    cfg = get_config(setup["arch"]).replace(n_layers=setup["layers"])
+    B, S, steps = setup["batch"], setup["seq"], setup["steps"]
+    tc = TrainerConfig(
+        model=cfg,
+        train=TrainConfig(lr=setup["lr"], warmup_steps=1, total_steps=steps,
+                          checkpoint_every=0, seed=seed,
+                          checkpoint_dir=str(Path(__file__).resolve().parent
+                                             / "build" / "chip_smoke_fsdp")),
+        data=DataConfig(global_batch=B, seq_len=S, seed=seed))
+    grads = GradientCheck()
+    hooks = [LitSiliconHook(get_config(setup["arch"]), ManagerConfig(
+        use_case="gpu-red", sampling_period=2, warmup=3, window_size=2),
+        preset="mi300x"), grads] if rank == 0 else []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(tc, hooks=hooks, device="cuda", mesh=mesh)
+    trainer.init_or_restore()
+    torch.cuda.synchronize()
+    if rank == 0:
+        n = sum(int(np.prod(p.shape)) for p in
+                tree_leaves(trainer.fsdp.placements))
+        log(f"fsdp: world {world} (NCCL, one process per card), "
+            f"{cfg.name} {cfg.n_layers} layers, {n / 1e9:.3f} B fp32 params "
+            f"sharded with both moments, made in "
+            f"{time.perf_counter() - t0:.1f} s; global batch {B} x S {S}, "
+            f"{B // world if B % world == 0 else B} rows a rank")
+    for k in KERNELS:
+        _build.reset_counts(k)
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = trainer.run(steps)                    # the main path
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in KERNELS}
+    by_path = {k.__name__: dict(k.launches_by_path) for k in KERNELS}
+    for name, want in expected_train_launches(cfg, steps).items():
+        if launches[name] != want:
+            raise AssertionError(f"fsdp rank {rank}: {name} {launches[name]}"
+                                 f" launches, expected {want}")
+    for name, paths in by_path.items():
+        if paths[SERVED_PATH[name]] != launches[name]:
+            raise AssertionError(f"fsdp rank {rank}: {name}: {paths}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ranks = [None] * world
+    torch.distributed.all_gather_object(ranks, (launches, by_path, peak))
+    if rank == 0:
+        dts = np.diff([t0] + grads.step_times) * 1e3
+        step_ms = float(np.median(dts[1:]))
+        losses = [m["loss"] for m in metrics]
+        log(f"fsdp: {steps} steps in {wall:.2f} s; losses "
+            f"{['%.4f' % x for x in losses]}; grad norms "
+            f"{['%.3f' % m['grad_norm'] for m in metrics]}")
+        log(f"fsdp world {world}: {step_ms:.1f} ms/step (median of steps "
+            f"2-{steps}; all {['%.1f' % x for x in dts]}) = "
+            f"{B * S * 1e3 / step_ms:.0f} tokens/s; peak memory per card "
+            f"{['%.2f' % r[2] for r in ranks]} GB; launches per rank "
+            f"{launches}; {CARD}")
+    prof, busy = (device_profile(f"fsdp world {world} step", step_ms,
+                                 lambda: trainer.run(1), top=10)
+                  if rank == 0 else (None, 0.0))
+    if rank != 0:
+        trainer.run(1)                  # the profiled step runs everywhere
+        return
+    # c10d's annotation of each collective on the device timeline: the
+    # device time of what NCCL ran for it (kernels; copies at world 1)
+    ranges = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.is_user_annotation
+              and e.key.startswith("nccl:")}
+    nccl = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and "nccl" in e.key.lower())
+    coll = sum(ranges.values())
+    log(f"fsdp world {world} collectives in a step (rank 0): "
+        f"{coll:.2f} ms of device time "
+        f"{ {k: round(v, 3) for k, v in ranges.items()} } (NCCL kernels "
+        f"{nccl:.2f} ms); busy {busy:.2f} of {step_ms:.2f} ms "
+        f"({100 * busy / step_ms:.1f}%); {CARD}")
+    Path(out).write_text(json.dumps({
+        "losses": losses, "step_ms": step_ms, "peak_gb": [r[2] for r in ranks],
+        "busy_ms": busy, "collective_ms": coll, "nccl_ms": nccl,
+        "launches": {k: sum(r[0][k] for r in ranks) for k in launches},
+        "by_path": {k: {p: sum(r[1][k][p] for r in ranks) for p in v}
+                    for k, v in by_path.items()}}))
+
+
+def fsdp_train(args, unsharded_losses) -> tuple:
+    """Phase 5b: the FSDP trainer over every card (at most 8), one spawned
+    process each; returns (launch counts, counts by path) summed over the
+    ranks."""
+    import torch.multiprocessing as mp
+    world = min(torch.cuda.device_count(), 8)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    import shutil
+    build = Path(__file__).resolve().parent / "build"
+    shutil.rmtree(build / "chip_smoke_fsdp", ignore_errors=True)
+    out = build / "chip_smoke_fsdp.json"
+    out.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    ctx = mp.start_processes(fsdp_worker, args=(world, port, args.seed, CARD,
+                                                str(out)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + FSDP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fsdp: world {world} did not finish in "
+                                     f"{FSDP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    res = json.loads(out.read_text())
+    if world == 1:
+        diff = max(abs(a - b) / abs(b)
+                   for a, b in zip(res["losses"], unsharded_losses))
+        log(f"fsdp world 1 against phase 5 (unsharded, same seed): losses "
+            f"{['%.4f' % x for x in res['losses']]} vs "
+            f"{['%.4f' % x for x in unsharded_losses]}, largest difference "
+            f"{diff:.3e} of the loss (tol {FSDP_LOSS_TOL})")
+        if len(res["losses"]) != len(unsharded_losses) \
+                or diff > FSDP_LOSS_TOL:
+            raise AssertionError("fsdp: world 1 and the unsharded trainer "
+                                 "disagree")
+    if not all(np.isfinite(res["losses"])) \
+            or not res["losses"][-1] < res["losses"][0]:
+        raise AssertionError(f"fsdp: losses {res['losses']} not finite and "
+                             f"falling")
+    return res["launches"], res["by_path"]
 
 
 # --------------------------------------------------------------------------- #
@@ -1523,8 +1731,10 @@ def main(argv=None) -> int:
     by_run["rwkv6-3b"] = serve(args, "rwkv6-3b")
     rwkv_kernel_vs_plain(args)
     torch.cuda.empty_cache()
-    by_run["llama3.1-8b train"] = train(args)
+    launches, by_path, losses = train(args)
+    by_run["llama3.1-8b train"] = (launches, by_path)
     train_kernel_vs_plain(args)
+    by_run["llama3.1-8b fsdp"] = fsdp_train(args, losses)
     by_name = {row["name"]: row for row in rows}
     device_times(g, by_name)
     backward_device_times(g, by_name)

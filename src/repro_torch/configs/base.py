@@ -3,8 +3,9 @@
 A copy of the model half of ``repro.configs.base`` (``ModelConfig``, its
 family sub-configs and ``reduce_config``): the port must not import the JAX
 package, whose ``repro`` import chain pulls in JAX, and the machine with the
-card has no JAX.  ``TrainConfig`` is a copy too, for the training slice;
-shapes and parallelism configs wait for the slices that use them.
+card has no JAX.  ``TrainConfig`` and ``ParallelConfig`` are copies too,
+for the training slices; the input-shape cells wait for the slice that uses
+them.
 """
 from __future__ import annotations
 
@@ -245,8 +246,30 @@ class ModelConfig:
 
 
 # --------------------------------------------------------------------------- #
-# Run configs
+# Run / parallelism configs
 # --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class ParallelConfig:
+    multi_pod: bool = False
+    fsdp_over_pod: Optional[bool] = None   # None -> auto (>=30B params)
+    sequence_parallel: bool = True         # SP residual-stream sharding
+    remat_policy: str = "nothing"          # nothing | dots | full
+    scan_layers: bool = True
+    explicit_overlap: bool = False         # shard_map prefetch FSDP variant
+    grad_compression: str = "none"         # none | int8 (pod-axis RS)
+
+    def fsdp_axes(self, model: ModelConfig) -> tuple:
+        over_pod = self.fsdp_over_pod
+        if over_pod is None:
+            over_pod = model.param_count() >= 30e9
+        if self.multi_pod and over_pod:
+            return ("pod", "data")
+        return ("data",)
+
+    def batch_axes(self) -> tuple:
+        return ("pod", "data") if self.multi_pod else ("data",)
+
+
 @dataclass
 class TrainConfig:
     lr: float = 3e-4

@@ -5,20 +5,34 @@
   python -m repro_torch.launch.train --arch llama3.1-8b --reduced \\
       --steps 30 --lr 3e-3 --device cpu
 
+and sharded (FSDP, ZeRO-3 over the ``data`` axis), one process per card,
+or per CPU process with gloo:
+
+  torchrun --nproc_per_node 8 -m repro_torch.launch.train \\
+      --arch llama3.1-8b --global-batch 8 --seq-len 4096 --steps 10
+  python -m torch.distributed.run --nproc_per_node 2 \\
+      -m repro_torch.launch.train --arch llama3.1-8b --reduced --steps 30 \\
+      --lr 3e-3 --device cpu
+
 The flags of ``python -m repro.launch.train``, plus ``--device`` and
 ``--layers`` (a depth cut at full width: full-depth llama3.1-8b's fp32
-parameters, gradients and AdamW moments, ~128 GB, do not fit one card).
-Runs synthetic data -> loss (per-layer activation checkpoints) -> backward
--> AdamW -> atomic checkpoints -> watchdog -> the Lit Silicon
-power-management co-sim hook (detect + mitigate per paper §V).  Weights are
-random, made on the device from the training seed.
+parameters, gradients and AdamW moments, ~128 GB, do not fit one card, but
+do fit a node's cards sharded).  Under torchrun (``WORLD_SIZE`` above 1 in
+the environment) it builds the host mesh and trains sharded; only rank 0
+prints and writes ``--metrics-out``.  Runs synthetic data -> loss
+(per-layer activation checkpoints) -> backward -> AdamW -> atomic
+checkpoints -> watchdog -> the Lit Silicon power-management co-sim hook
+(detect + mitigate per paper §V).  Weights are random, made on the device
+from the training seed.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
+import torch
 
 from repro_torch.launch.serve import resolve_device
 
@@ -51,6 +65,11 @@ def main(argv=None):
                                               TrainerConfig)
 
     device = resolve_device(args.device)
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from repro_torch.parallel.mesh import make_host_mesh
+        mesh = make_host_mesh(device=device.type)
+    rank0 = mesh is None or mesh.get_rank() == 0
     model_cfg = (get_reduced_config(args.arch) if args.reduced
                  else get_config(args.arch))
     if args.layers:
@@ -65,17 +84,33 @@ def main(argv=None):
                         seq_len=args.seq_len),
     )
     hooks = []
-    if args.use_case:
+    if args.use_case and rank0:
         hooks.append(LitSiliconHook(
             get_config(args.arch),       # sim runs the FULL arch workload
             ManagerConfig(use_case=args.use_case, sampling_period=2,
                           warmup=3, window_size=2),
             preset=args.preset))
-    trainer = Trainer(tc, hooks=hooks, device=device)
-    log = trainer.run(args.steps)
-    trainer.ckpt.wait()
-    print(f"arch={model_cfg.name} device={device} step {log[-1]['step']}: "
+    try:
+        trainer = Trainer(tc, hooks=hooks, device=device, mesh=mesh)
+        log = trainer.run(args.steps)
+        trainer.ckpt.wait()
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+    if not rank0:
+        return 0
+    world = "" if mesh is None else f" world={mesh.size()}"
+    print(f"arch={model_cfg.name} device={device}{world} step "
+          f"{log[-1]['step']}: "
           f"loss {log[-1]['loss']:.4f} (start {log[0]['loss']:.4f})")
+    step_s = float(np.median(trainer.watchdog.step_times[1:]
+                             or trainer.watchdog.step_times))
+    peak = (f"; rank 0 peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            if device.type == "cuda" else "")
+    print(f"{step_s * 1e3:.1f} ms/step (host clock, median after the first "
+          f"step) = {args.global_batch * args.seq_len / step_s:.0f} "
+          f"tokens/s on {device.type}{peak}")
     if args.use_case:
         h = hooks[0]
         caps = h.backend.get_power_caps()

@@ -69,8 +69,10 @@ def load_dtype(path: Tuple[str, ...], spec: ParamSpec,
 
 
 def init_params(spec_tree, generator: torch.Generator, *,
-                dtype: torch.dtype, device) -> Dict[str, Any]:
-    """Random parameters made directly on ``device`` (the generator's)."""
+                dtype: torch.dtype, device, keep=None) -> Dict[str, Any]:
+    """Random parameters made directly on ``device`` (the generator's), one
+    leaf at a time; ``keep(path, leaf)``, if given, returns what is kept of
+    each leaf (a shard) before the next is made."""
     def make(path, spec: ParamSpec) -> torch.Tensor:
         dt = load_dtype(path, spec, dtype)
         if spec.init == "zeros":
@@ -85,7 +87,10 @@ def init_params(spec_tree, generator: torch.Generator, *,
         x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                         device=device)
         return x.mul_(scale).to(dt)
-    return tree_map_specs(make, spec_tree)
+    if keep is None:
+        return tree_map_specs(make, spec_tree)
+    return tree_map_specs(lambda path, spec: keep(path, make(path, spec)),
+                          spec_tree)
 
 
 def tree_leaves(tree):
@@ -206,12 +211,14 @@ def apply_rope(x, cos, sin):
 # Loss
 # --------------------------------------------------------------------------- #
 def cross_entropy_loss(logits, labels, z_loss_weight: float = 0.0,
-                       ignore_index: int = -100):
+                       ignore_index: int = -100, count=None):
     """Mean CE over non-ignored tokens, with an optional z-loss regularizer
     (the weight times the mean squared log-partition).
 
     logits: (..., V) any float dtype, taken in fp32; labels: (...) ints.
-    The mean's denominator is the count of non-ignored tokens, at least 1.
+    The mean's denominator is the count of non-ignored tokens, at least 1,
+    or ``count(that count)`` where given (the global batch's count, when
+    these labels are one rank's rows of it).
     """
     logits = logits.float()
     mask = labels != ignore_index
@@ -220,7 +227,7 @@ def cross_entropy_loss(logits, labels, z_loss_weight: float = 0.0,
     ll = torch.take_along_dim(logits, safe[..., None], -1)[..., 0]
     ce = (lse - ll) * mask
     n = mask.sum()
-    denom = n.clamp_min(1)
+    denom = n.clamp_min(1) if count is None else count(n)
     loss = ce.sum() / denom
     metrics = {"ce_loss": loss, "tokens": n}
     if z_loss_weight:

@@ -138,44 +138,62 @@ class DecoderOnlyLM:
             logits = logits.masked_fill(pad, -1e30)
         return logits
 
-    def _layer(self, i: int, lp, x, positions):
-        """Layer i of the forward pass: (x, the MoE aux loss or None)."""
+    def _layer(self, i: int, lp, x, positions, gather=None):
+        """Layer i of the forward pass: (x, the MoE aux loss or None).
+        ``gather``: the layer's leaves are shards, gathered here (inside
+        the activation checkpoint, so the recompute gathers them again)."""
+        if gather is not None:
+            lp = gather(lp)
         h = apply_norm(self.cfg, lp["ln1"], x)
         return self._ffn(i, lp, x + attn.attention(
             self.cfg, lp["attn"], h, positions, causal=True,
             window_eff=self.cfg.window))
 
     # --------------------------------------------------------------- forward
-    def forward(self, params, batch, *, remat: bool = False
+    def forward(self, params, batch, *, remat: bool = False, gather=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced logits (B, S, V) and the summed MoE aux loss.
-        ``remat``: each layer under one activation checkpoint."""
+        ``remat``: each layer under one activation checkpoint.  ``gather``
+        (sharded training): ``params`` holds shards, and each part is
+        gathered around its use, the layers' inside their checkpoints."""
+        def whole(tree):
+            return tree if gather is None else gather(tree)
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-        x = self._embed(params, tokens)
+        x = self._embed(whole({"embed": params["embed"]}), tokens)
         aux = torch.zeros((), device=x.device)
         for i, lp in enumerate(params["layers"]):
             if remat:
-                x, a = checkpoint(self._layer, i, lp, x, positions,
+                x, a = checkpoint(self._layer, i, lp, x, positions, gather,
                                   use_reentrant=False)
             else:
-                x, a = self._layer(i, lp, x, positions)
+                x, a = self._layer(i, lp, x, positions, gather)
             if a is not None:
                 aux = aux + a
-        return self._logits(params, x), aux
+        head = "embed" if self.cfg.tie_embeddings else "lm_head"
+        return self._logits(whole({"final_norm": params["final_norm"],
+                                   head: params[head]}), x), aux
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, fsdp=None):
         """(loss + MoE aux, metrics) for params in the JAX layout (stacked
         groups), split into per-layer views here, each layer under an
         activation checkpoint; batch: tokens and labels (B, S).  CE with
         z-loss at ``z_loss_weight`` (1e-4 unless set on the model), as the
-        JAX model's ``loss``."""
-        logits, aux = self.forward(self.split_layers(params), batch,
-                                   remat=True)
+        JAX model's ``loss``.  ``fsdp`` (``repro_torch.parallel.fsdp.FSDP``):
+        params are this rank's shards and batch its rows of the global
+        batch; the parts are gathered around their use and the CE and
+        z-loss sums divided by the global token count."""
+        if fsdp is None:
+            logits, aux = self.forward(self.split_layers(params), batch,
+                                       remat=True)
+        else:
+            logits, aux = self.forward(fsdp.split(params), batch, remat=True,
+                                       gather=fsdp.gather)
         loss, metrics = cross_entropy_loss(
             logits, batch["labels"],
-            z_loss_weight=getattr(self, "z_loss_weight", 1e-4))
+            z_loss_weight=getattr(self, "z_loss_weight", 1e-4),
+            count=None if fsdp is None else fsdp.token_count)
         metrics["aux_loss"] = aux
         return loss + aux, metrics
 

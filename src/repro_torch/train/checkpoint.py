@@ -12,8 +12,10 @@ package restores through the other.  Each step is written to
 ``.tmp-step_<N>`` and ``os.replace``d; the copy to host memory is
 synchronous, the file I/O runs on a writer thread; the ``keep`` newest steps
 are retained and stale temporary directories of crashed writers swept.
-``restore`` loads into the tensors of the tree it is given, in place: at
-full width a second copy of the state would not fit the card.
+``restore`` loads into the tensors of the tree it is given, in place, one
+leaf at a time: at full width a second copy of the state would not fit the
+card.  Under FSDP rank 0 writes the leaves whole (gathered), and on restore
+each rank keeps its shard of each (``restore``'s ``shard``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,10 +137,14 @@ class CheckpointManager:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, tree, step: Optional[int] = None) -> Tuple[Any, Dict]:
+    def restore(self, tree, step: Optional[int] = None,
+                shard: Optional[Callable[[str, torch.Tensor],
+                                         torch.Tensor]] = None
+                ) -> Tuple[Any, Dict]:
         """Load step ``step`` (default: the latest) into the tensors of
-        ``tree``, in place (each keeps its device and dtype); returns
-        (tree, manifest)."""
+        ``tree``, in place (each keeps its device and dtype), one leaf at a
+        time; ``shard(key, leaf)``, if given, is the part of each whole
+        leaf that ``tree`` holds.  Returns (tree, manifest)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -147,21 +153,24 @@ class CheckpointManager:
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        with np.load(os.path.join(d, "shard_0.npz")) as data:
-            arrays = {k.replace("|", "/"): data[k] for k in data.files}
-        with torch.no_grad():
+        with np.load(os.path.join(d, "shard_0.npz")) as data, \
+                torch.no_grad():
+            files = set(data.files)
             for key, like in flatten_with_paths(tree):
-                if key not in arrays:
+                name = key.replace("/", "|")
+                if name not in files:
                     raise KeyError(f"checkpoint missing leaf {key!r}")
-                arr = arrays[key]
-                if tuple(arr.shape) != tuple(like.shape):
-                    raise ValueError(f"leaf {key!r}: checkpoint shape "
-                                     f"{arr.shape} != {tuple(like.shape)}")
+                arr = data[name]
                 if manifest["dtypes"].get(key) == "bfloat16" \
                         and arr.dtype == np.uint16:
                     t = torch.from_numpy(arr.view(np.int16)).view(
                         torch.bfloat16)
                 else:
                     t = torch.from_numpy(np.array(arr))     # 0-d kept 0-d
+                if shard is not None:
+                    t = shard(key, t)
+                if tuple(t.shape) != tuple(like.shape):
+                    raise ValueError(f"leaf {key!r}: checkpoint shape "
+                                     f"{arr.shape} != {tuple(like.shape)}")
                 like.copy_(t)
         return tree, manifest

@@ -14,7 +14,7 @@ the state would not fit the card.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -73,12 +73,16 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(cfg: TrainConfig, params, grads, state: AdamWState
+def adamw_update(cfg: TrainConfig, params, grads, state: AdamWState,
+                 norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step on the trees ``params`` and ``grads`` (same structure),
-    written into ``params`` and the state's moments in place.  Returns
-    (params, the state with its step advanced, {"grad_norm", "lr"})."""
-    norm = global_norm(grads)
+    written into ``params`` and the state's moments in place.  ``norm``: the
+    gradients' global norm, where the trees hold shards of it (default:
+    ``global_norm(grads)``).  Returns (params, the state with its step
+    advanced, {"grad_norm", "lr"})."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = clip_scale(norm, cfg.grad_clip)
     step = state.step + 1
     lr = lr_schedule(cfg, step)

@@ -1,5 +1,5 @@
-"""Trainer: the end-to-end loop on one device, and the Lit Silicon co-sim
-hook.
+"""Trainer: the end-to-end loop, on one device or sharded over a mesh's
+``data`` axis (ZeRO-3), and the Lit Silicon co-sim hook.
 
 The torch counterpart of ``repro.train.train_loop``: synthetic batches ->
 the model's loss (each layer under an activation checkpoint) -> backward ->
@@ -8,20 +8,27 @@ global-norm clip and AdamW -> atomic/async checkpoints -> watchdog rollback
 step advances the thermal/C3 node simulation one iteration and feeds its
 trace to the PowerManager, which tunes per-device power caps online.
 
-One device and no mesh: the multi-card (FSDP) node is a later slice.  The
-dense family trains; MoE and RWKV6 models raise until their kernels have
-backward passes.
+Given a mesh (``repro_torch.parallel.mesh.make_host_mesh``, one process per
+card), ``Trainer`` holds the state sharded (``repro_torch.parallel.fsdp``),
+also at a world of one, so that one card runs the same code: every rank
+draws the same global batch and takes its rows, the loss and the gradient
+norm are global, so the watchdog reads the same verdict on every rank; the
+hooks run on rank 0 only (the hook simulates the paper's 8-device node
+whatever the world size); rank 0 writes checkpoints whole, in the JAX
+layout, and every rank restores its shard.  Without a mesh it trains on one
+device, unsharded.  The dense family trains; MoE and RWKV6 models raise
+until their kernels have backward passes.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.core.backends import SimBackend
 from repro_torch.core.c3sim import NodeSim, SimConfig
 from repro_torch.core.manager import ManagerConfig, PowerManager
@@ -29,11 +36,11 @@ from repro_torch.core.thermal import PRESETS
 from repro_torch.core.workload import fsdp_llm_iteration
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.registry import build_model
+from repro_torch.parallel.fsdp import FSDP, TrainState, check_parallel
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import DataConfig, SyntheticTokens
 from repro_torch.train.fault import Watchdog, WatchdogConfig
-from repro_torch.train.optimizer import (AdamWState, adamw_update,
-                                         init_state, tree_map)
+from repro_torch.train.optimizer import adamw_update, init_state, tree_map
 
 # what a later slice brings, by model family
 _NOT_TRAINED = {
@@ -41,13 +48,6 @@ _NOT_TRAINED = {
            "slice 8)",
     "rwkv": "RWKV6 training needs the WKV6 backward (ROADMAP.md slice 10)",
 }
-
-
-class TrainState(NamedTuple):
-    """The JAX package's TrainState without its grad-compression error
-    feedback (multi-card only): the same checkpoint keys."""
-    params: Any
-    opt: AdamWState
 
 
 class LitSiliconHook:
@@ -77,15 +77,22 @@ class LitSiliconHook:
 class TrainerConfig:
     model: ModelConfig
     train: TrainConfig = field(default_factory=TrainConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     data: DataConfig = field(default_factory=DataConfig)
 
 
 class Trainer:
+    """``mesh``: a ("data", "model") ``DeviceMesh`` over the processes of
+    the world (``make_host_mesh``), each on ``device``; None trains on one
+    device, unsharded."""
+
     def __init__(self, cfg: TrainerConfig,
-                 hooks: Optional[List[Callable]] = None, device="cuda"):
+                 hooks: Optional[List[Callable]] = None, device="cuda",
+                 mesh=None):
         if cfg.model.family in _NOT_TRAINED:
             raise NotImplementedError(
                 f"{cfg.model.name}: {_NOT_TRAINED[cfg.model.family]}")
+        check_parallel(cfg.parallel)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} asked for but CUDA is not "
@@ -93,6 +100,9 @@ class Trainer:
                                f"the CPU")
         self.cfg = cfg
         self.model = build_model(cfg.model)
+        self.fsdp = (None if mesh is None else
+                     FSDP(self.model, mesh, cfg.parallel, self.device))
+        self.rank = 0 if self.fsdp is None else self.fsdp.rank
         self.data = SyntheticTokens(cfg.data, cfg.model)
         self.ckpt = CheckpointManager(cfg.train.checkpoint_dir,
                                       keep=cfg.train.keep_checkpoints)
@@ -105,18 +115,36 @@ class Trainer:
     # ------------------------------------------------------------------ init
     def _init_state(self, seed: int) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = self.model.init_train_params(gen, self.device)
+        params = (self.model.init_train_params(gen, self.device)
+                  if self.fsdp is None else self.fsdp.init_params(gen))
         return TrainState(params, init_state(params))
 
     def init_or_restore(self) -> None:
         self.state = self._init_state(self.cfg.train.seed)
         self.step = 0
-        if self.ckpt.latest_step() is not None:
-            self._restore()
+        latest = self._latest_step()
+        if latest is not None:
+            self._restore(latest)
 
-    def _restore(self) -> None:
-        """The latest checkpoint, loaded into the current state's tensors."""
-        _, manifest = self.ckpt.restore(self.state)
+    def _latest_step(self) -> Optional[int]:
+        """The newest complete checkpoint: rank 0's, once its writer is
+        done, so that every rank restores the same one (or none)."""
+        if self.fsdp is None:
+            return self.ckpt.latest_step()
+        self.ckpt.wait()
+        step = self.ckpt.latest_step() if self.rank == 0 else None
+        t = torch.tensor([-1 if step is None else step], device=self.device)
+        torch.distributed.broadcast(t, 0, group=self.fsdp.group)
+        return None if int(t) < 0 else int(t)
+
+    def _restore(self, step: int) -> None:
+        """Checkpoint ``step``, loaded into the current state's tensors (each
+        rank its shards)."""
+        shard = None
+        if self.fsdp is not None:
+            where = self.fsdp.state_placements()
+            shard = lambda key, t: self.fsdp.shard(t, where[key])  # noqa: E731
+        _, manifest = self.ckpt.restore(self.state, step, shard=shard)
         self.step = manifest["step"]
 
     # ------------------------------------------------------------------ step
@@ -127,16 +155,22 @@ class Trainer:
         params = self.state.params
         for p in tree_leaves(params):
             p.grad = None
-        loss, metrics = self.model.loss(params, batch)
-        loss.backward()
+        if self.fsdp is None:
+            loss, metrics = self.model.loss(params, batch)
+            loss.backward()
+            metrics = {k: v.detach() if torch.is_tensor(v) else v
+                       for k, v in metrics.items()}
+            metrics["loss"] = loss.detach()
+            norm = None
+        else:
+            metrics = self.fsdp.loss_and_backward(params, batch)
         grads = tree_map(lambda p: p.grad, params)
+        if self.fsdp is not None:
+            norm = self.fsdp.global_norm(grads)
         _, opt, om = adamw_update(self.cfg.train, params, grads,
-                                  self.state.opt)
+                                  self.state.opt, norm=norm)
         self.state = self.state._replace(opt=opt)
-        metrics = {k: v.detach() if torch.is_tensor(v) else v
-                   for k, v in metrics.items()}
         metrics.update(om)
-        metrics["loss"] = loss.detach()
         return metrics
 
     def run(self, n_steps: int) -> List[Dict[str, Any]]:
@@ -156,7 +190,7 @@ class Trainer:
             metrics = {k: (float(v) if hasattr(v, "item") else v)
                        for k, v in metrics.items()}
             metrics["step"] = self.step
-            for hook in self.hooks:
+            for hook in self.hooks if self.rank == 0 else ():
                 hook(self.step, metrics, self)
             self.metrics_log.append(metrics)
             self.step += 1
@@ -165,16 +199,23 @@ class Trainer:
                 self.save()
         return self.metrics_log
 
-    def save(self) -> str:
-        return self.ckpt.save(self.step, self.state,
+    def save(self) -> Optional[str]:
+        """Checkpoint the state (under FSDP: gathered leaf by leaf, written
+        by rank 0; the other ranks return None)."""
+        state = (self.state if self.fsdp is None
+                 else self.fsdp.full_state(self.state))
+        if state is None:
+            return None
+        return self.ckpt.save(self.step, state,
                               extra={"model": self.cfg.model.name})
 
     def _rollback(self) -> None:
-        if self.ckpt.latest_step() is None:
+        latest = self._latest_step()
+        if latest is None:
             # no checkpoint yet: re-init (counts against watchdog budget);
             # the old state goes first, two would not fit the card
             self.state = None
             self.state = self._init_state(self.cfg.train.seed + 1)
             self.step = 0
             return
-        self._restore()
+        self._restore(latest)

@@ -664,3 +664,55 @@ def test_reduced_training_step_on_card_matches_cpu(cuda, arch):
     assert abs(float(lg.detach()) - float(lc.detach())) <= 1e-5 * float(lc.detach())
     for a, b in zip(tree_leaves(on_card), tree_leaves(params)):
         _rel(a.grad.cpu(), b.grad, 1e-4)
+
+
+@pytest.mark.cuda
+def test_fsdp_world1_step_equals_unsharded_step(cuda, monkeypatch, tmp_path):
+    """One training step of full-width llama3.1-8b cut to 2 layers (bf16
+    compute), through the FSDP path over an NCCL group of one and through
+    the unsharded trainer, from the same seed and batch: the same loss,
+    gradient norm and updated state.  At world 1 the gathers and
+    reduce-scatters copy, and the loss, the norm and AdamW take the same
+    sums in the same order, so the two agree to 1e-6 of each value (of
+    each leaf's largest magnitude)."""
+    import socket
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.parallel.mesh import make_host_mesh
+    from repro_torch.train.checkpoint import flatten_with_paths
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+    tc = TrainerConfig(
+        model=get_config("llama3.1-8b").replace(n_layers=2),
+        train=TrainConfig(lr=1e-3, warmup_steps=1, total_steps=4,
+                          checkpoint_every=0, checkpoint_dir=str(tmp_path)),
+        data=DataConfig(global_batch=2, seq_len=1024))
+
+    def one_step(mesh):
+        tr = Trainer(tc, device="cuda", mesh=mesh)
+        log = tr.run(1)
+        state = dict(flatten_with_paths(tr.state))
+        for t in state.values():
+            t.grad = None
+        del tr
+        torch.cuda.empty_cache()
+        return log[0], state
+
+    want, plain = one_step(None)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    try:
+        got, sharded = one_step(make_host_mesh())
+    finally:
+        torch.distributed.destroy_process_group()
+    for k in ("loss", "ce_loss", "grad_norm"):
+        assert abs(got[k] - want[k]) <= 1e-6 * abs(want[k]), k
+    assert sharded.keys() == plain.keys()
+    with torch.no_grad():
+        for key, b in plain.items():
+            err = float((sharded[key].float() - b.float()).abs().max())
+            assert err <= 1e-6 * max(float(b.float().abs().max()), 1.0), key
