@@ -38,28 +38,38 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    tokens/s, peak memory, device-busy share; a checkpoint round trip of a
    reduced model on the card; then the loss and every gradient of a 2-layer
    full-width cut, kernel path against plain path;
+5c. MoE training: full-width deepseek-v3-16b cut to 5 of its 28 layers
+   (layer 0 dense, 4 MoE), as phase 5, with the grouped GEMM's forward,
+   dgrad and wgrad launches counted too and every expert's gradient slice
+   checked (the experts routed no token counted); then the 2-layer cut
+   (the dense layer and one MoE layer), kernel path against plain path,
+   the plain path routed as the kernel path was;
 5b. FSDP training (ZeRO-3 over the ``data`` axis): one process per card
    (``torch.multiprocessing``, NCCL), as many as the machine has (at most
-   8), through ``Trainer`` on the host mesh; at a world of 8 full-depth
-   llama3.1-8b, global batch 8 x S 4096, else phase 5's configuration; the
-   launches counted per rank as in phase 5, and at a world of 1 the loss of
-   each step held to phase 5's unsharded run; the world size, ms/step,
+   8), through ``Trainer`` on the host mesh; phase 5's configuration, then
+   phase 5c's (at a world of 1 its first 4 steps), at a world of 8 both at
+   full depth with global batch 8 x S 4096; the launches counted per rank
+   as in phases 5 and 5c, and at a world of 1 the loss of each step held
+   to the unsharded run's (the MoE run's bit for bit); the world size, ms/step,
    tokens/s, peak memory per card, device-busy share and the device time a
    step spends in the collectives (torch.profiler: the device time under
    c10d's ``nccl:*`` annotations, and the NCCL kernels');
 6. the device time alone (torch.profiler) of RMSNorm and WKV6, the new
-   kernels and the ones kept beside them (L2 flushed), and of the two
-   backward kernels (flash's wgmma kernels and the simt ones kept beside
-   them), their plain versions and the library's backward, after the served
-   and trained runs, whose host timings a profiler session would slow;
+   kernels and the ones kept beside them (L2 flushed), and of the backward
+   kernels (flash's wgmma kernels and the simt ones kept beside them,
+   RMSNorm's, the grouped GEMM's dgrad and wgrad), their plain versions and
+   the library's backward (torch.bmm for the GEMMs), after the served and
+   trained runs, whose host timings a profiler session would slow;
 7. the JSON line of the kernels, then the JSON line of the device.
 
-Phase 2 also holds the two backward kernels (flash attention's dQ, dK, dV
+Phase 2 also holds the backward kernels (flash attention's dQ, dK, dV
 from the forward's log-sum-exp, "wgmma" for bf16 D 64/128 and "simt" for
-the rest; RMSNorm's dx, dw) against their plain versions and against
-autograd of the plain forward; at flash's training shape it also holds the
-kept simt kernels to the plain backward and checks that the wgmma kernels
-give the same bits twice.
+the rest; RMSNorm's dx, dw; the grouped GEMM's dgrad and wgrad, "wgmma"
+for bf16 that TMA can read and "simt" for the rest) against their plain
+versions and against autograd of the plain forward; at flash's and the
+grouped GEMM's training shapes it also checks that the wgmma kernels give
+the same bits twice (and at flash's holds the kept simt kernels to the
+plain backward).
 
 It needs ``src/repro_torch`` beside it, and CUDA; without either it exits
 non-zero and prints no result.
@@ -93,8 +103,13 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd  # no
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as moe_ops  # noqa: E402
+from repro_torch.kernels.moe_gemm.kernel import moe_gemm_dgrad  # noqa: E402
 from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd  # noqa: E402
+from repro_torch.kernels.moe_gemm.kernel import moe_gemm_wgrad  # noqa: E402
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_bwd_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_dgrad_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_wgrad_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd  # noqa: E402
@@ -141,11 +156,12 @@ MAX_FLIPPED_SHARE = 0.5
 WKV_TOL = {torch.float32: (5e-4, 0.0), torch.bfloat16: (5e-2, 2 ** -7)}
 KERNELS = [fa_ops.flash_attention_fwd, rms_ops.rmsnorm_fwd,
            moe_ops.moe_gemm_fwd, wkv_ops.wkv6_fwd, fa_ops.flash_attention_bwd,
-           rms_ops.rmsnorm_bwd]
+           rms_ops.rmsnorm_bwd, moe_ops.moe_gemm_dgrad, moe_ops.moe_gemm_wgrad]
 # the kernel every served or trained launch of each wrapper must take
 SERVED_PATH = {"flash_attention_fwd": "wgmma", "rmsnorm_fwd": "vector",
                "moe_gemm_fwd": "wgmma", "wkv6_fwd": "split",
-               "flash_attention_bwd": "wgmma", "rmsnorm_bwd": "simt"}
+               "flash_attention_bwd": "wgmma", "rmsnorm_bwd": "simt",
+               "moe_gemm_dgrad": "wgmma", "moe_gemm_wgrad": "wgmma"}
 # backward kernels against their plain backward (same inputs, same lse) and
 # against autograd of the plain forward: fp32 and bf16 relative to each
 # gradient's largest magnitude (sums over many keys or rows; in bf16 the
@@ -154,6 +170,13 @@ BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the training phase: full-width llama3.1-8b, 8 of 32 layers, B 2 x S 4096
 TRAIN = dict(arch="llama3.1-8b", layers=8, batch=2, seq=4096, steps=10,
              lr=1e-3)
+# the MoE training phase (5c): full-width deepseek-v3-16b, 5 of 28 layers
+# (layer 0 dense, 4 MoE: 2.855 B fp32 params, about phase 5's), B 2 x S 4096
+TRAIN_MOE = dict(arch="deepseek-v3-16b", layers=5, batch=2, seq=4096,
+                 steps=10, lr=1e-3)
+# phase 5b's MoE run at a world of 1: its losses equal phase 5c's first
+# steps bit for bit (at a world of 1 the MoE layers route as one device)
+FSDP_MOE_STEPS_WORLD1 = 4
 # kernel path vs plain path, loss and every gradient leaf of a 2-layer
 # full-width bf16 cut: both round activations to bf16 at the same points
 # and sum in another order, so values on a rounding boundary move one bf16
@@ -214,7 +237,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
-SENTINELS = 3      # kernels launched around the timed ones, then left out
+SENTINELS = 16     # kernels launched around the timed ones, then left out
 
 
 def profiled_kernels(calls):
@@ -346,7 +369,7 @@ def build() -> None:
     t0 = time.perf_counter()
     _build.build_all()
     for name in ("flash_attention", "flash_attention_bwd", "rmsnorm",
-                 "moe_gemm", "wkv6"):
+                 "moe_gemm", "moe_gemm_bwd", "wkv6"):
         _build.library(name)
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     for entry in _build.build_log:
@@ -933,6 +956,103 @@ def rmsnorm_bwd_checks(g) -> dict:
                 bound_by=b_by, library_ms=lib_ms)
 
 
+def moe_gemm_bwd_checks(g) -> list:
+    """moe_gemm_dgrad and moe_gemm_wgrad against the plain backward and
+    autograd of the plain forward: edge cases (C <= 64, unaligned d or h,
+    fp32), then deepseek-v3-16b's training shape (E 64, C 960: T 8192, top-6,
+    capacity factor 1.25) in both orientations (wg / wu: d 2048 -> h 1408;
+    wd: 1408 -> 2048), with the same bits twice and the kernel's, the plain
+    version's and torch.bmm's times."""
+    dev = "cuda"
+    log("moe_gemm backward (dgrad, wgrad: kernel vs plain backward and "
+        "autograd):")
+    cases = [  # (E, C, d, h, dtype, the path both take)
+        (3, 37, 100, 45, torch.float32, "simt"),
+        (3, 37, 100, 45, torch.bfloat16, "simt"),    # unaligned d, h
+        (2, 40, 96, 100, torch.bfloat16, "simt"),    # h not a multiple of 8
+        (4, 64, 96, 200, torch.float32, "simt"),
+        (2, 1, 64, 64, torch.bfloat16, "wgmma"),     # C 1
+        (3, 8, 72, 136, torch.bfloat16, "wgmma"),    # C 8 (decode)
+        (3, 64, 136, 72, torch.bfloat16, "wgmma"),   # C 64
+        (2, 130, 72, 136, torch.bfloat16, "wgmma"),  # 256-row tile of C
+        (2, 300, 264, 200, torch.bfloat16, "wgmma"),  # ragged 256-row tiles
+        (1, 96, 2048, 1408, torch.bfloat16, "wgmma"),
+    ]
+    for E, C, d, h, dt, want in cases:
+        x = torch.randn(E, C, d, generator=g, device=dev).to(dt)
+        w = torch.randn(E, d, h, generator=g, device=dev).to(dt)
+        dy = torch.randn(E, C, h, generator=g, device=dev).to(dt)
+        dx, pd = took(moe_gemm_dgrad, lambda: moe_gemm_dgrad(dy, w))
+        dw, pw = took(moe_gemm_wgrad, lambda: moe_gemm_wgrad(x, dy))
+        if (pd, pw) != (want, want):
+            raise AssertionError(f"E{E} C{C} d{d} h{h} {dt}: paths {pd}, "
+                                 f"{pw}; expected {want}")
+        check_grads(f"E{E} C{C} d{d} h{h} {str(dt)[6:]} [{pd}]", (dx, dw),
+                    moe_gemm_bwd_ref(x, w, dy),
+                    autograd_of(moe_gemm_ref, (x, w), dy), BWD_TOL[dt])
+
+    rows = {}
+    dt, E, C = torch.bfloat16, 64, 960
+    for form, d, h in (("wg/wu", 2048, 1408), ("wd", 1408, 2048)):
+        x = torch.randn(E, C, d, generator=g, device=dev).to(dt)
+        w = torch.randn(E, d, h, generator=g, device=dev).to(dt)
+        dy = torch.randn(E, C, h, generator=g, device=dev).to(dt)
+        dx, pd = took(moe_gemm_dgrad, lambda: moe_gemm_dgrad(dy, w))
+        dw, pw = took(moe_gemm_wgrad, lambda: moe_gemm_wgrad(x, dy))
+        same = torch.equal(dx, moe_gemm_dgrad(dy, w)) and \
+            torch.equal(dw, moe_gemm_wgrad(x, dy))
+        plain = moe_gemm_bwd_ref(x, w, dy)
+        check_grads(f"training shape {form} (E{E} C{C} d{d} h{h} bf16) "
+                    f"[{pd}/{pw}]", (dx, dw), plain,
+                    autograd_of(moe_gemm_ref, (x, w), dy), BWD_TOL[dt])
+        err = max(max_err(a, b) for a, b in zip((dx, dw), plain))
+        log(f"  max_abs_err against the plain backward {err:.3e} (gradients "
+            f"up to {max(float(b.float().abs().max()) for b in plain):.1f}); "
+            f"the same bits twice: {same}")
+        if (pd, pw) != ("wgmma", "wgmma") or not same:
+            raise AssertionError(f"training shape {form}: paths {pd}/{pw}, "
+                                 f"same bits {same}")
+        del dx, dw, plain
+        flops = 2 * E * C * d * h
+        timed = {   # name: (kernel, plain, torch.bmm, bytes moved)
+            "moe_gemm_dgrad": (
+                lambda: moe_gemm_dgrad(dy, w),
+                lambda: moe_gemm_dgrad_ref(dy, w),
+                lambda: torch.bmm(dy, w.transpose(1, 2)),
+                2 * (dy.numel() + w.numel() + E * C * d)),
+            "moe_gemm_wgrad": (
+                lambda: moe_gemm_wgrad(x, dy),
+                lambda: moe_gemm_wgrad_ref(x, dy),
+                lambda: torch.bmm(x.transpose(1, 2), dy),
+                2 * (x.numel() + dy.numel() + E * d * h)),
+        }
+        for name, (fn, plain, lib, nbytes) in timed.items():
+            ms = cuda_ms(fn, iters=10)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            lib_ms = cuda_ms(lib, iters=10)
+            b_ms, b_by = bound(nbytes, flops, dt)
+            log(f"  {name} {form}: kernel {ms:.4f} ms ({ms / b_ms:.2f}x its "
+                f"bound, {ms / lib_ms:.2f}x torch.bmm), plain {plain_ms:.4f}"
+                f" ms, torch.bmm {lib_ms:.4f} ms, bound {b_ms * 1e3:.1f} us "
+                f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP); "
+                f"{CARD}")
+            if name not in rows:
+                rows[name] = dict(
+                    name=name, route="cuda",
+                    source="src/repro_torch/kernels/csrc/moe_gemm_bwd.cu",
+                    replaces="src/repro/models/moe.py:91",
+                    replaces_note="no TPU kernel: XLA autodiff of the "
+                                  "expert einsums",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms)
+            else:
+                rows[name].update(wd_ms=ms, wd_plain_ms=plain_ms,
+                                  wd_bound_ms=b_ms, wd_library_ms=lib_ms)
+        del x, w, dy
+        torch.cuda.empty_cache()
+    return [rows["moe_gemm_dgrad"], rows["moe_gemm_wgrad"]]
+
+
 # --------------------------------------------------------------------------- #
 # Phase 3: serve llama3.1-8b, deepseek-v3-16b and rwkv6-3b
 # --------------------------------------------------------------------------- #
@@ -940,7 +1060,8 @@ def expected_launches(cfg, new_tokens: int) -> dict:
     """Launches of each kernel in one served run: prefill + new_tokens - 1
     decode steps, new_tokens forwards in all."""
     n_moe = (cfg.n_layers - cfg.moe.first_k_dense) if cfg.moe else 0
-    no_backward = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+    no_backward = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+                   "moe_gemm_dgrad": 0, "moe_gemm_wgrad": 0}
     if cfg.family == "rwkv":      # no attention; ln0 after the embedding
         return {"flash_attention_fwd": 0,
                 "rmsnorm_fwd": (2 * cfg.n_layers + 2) * new_tokens,
@@ -1258,62 +1379,79 @@ def rwkv_kernel_vs_plain(args, steps: int = 4) -> None:
 # Phase 5: train llama3.1-8b (8 of 32 layers) on the card
 # --------------------------------------------------------------------------- #
 def expected_train_launches(cfg, steps: int) -> dict:
-    """Launches of each kernel in ``steps`` dense training steps: every layer
-    runs under an activation checkpoint, so its flash attention and norms
-    run forward twice (the forward, the recompute in the backward) and
-    backward once; the final norm once each way."""
+    """Launches of each kernel in ``steps`` training steps: every layer runs
+    under an activation checkpoint, so its flash attention, norms and
+    grouped GEMMs (3 a MoE layer) run forward twice (the forward, the
+    recompute in the backward) and backward once (each GEMM one dgrad and
+    one wgrad); the final norm once each way."""
     L = cfg.n_layers
     norms = 4 if cfg.qk_norm else 2                     # ln1, ln2 (q, k)
+    gemms = 3 * (L - cfg.moe.first_k_dense) if cfg.moe else 0
     return {"flash_attention_fwd": 2 * L * steps,
             "rmsnorm_fwd": (2 * norms * L + 1) * steps,
-            "moe_gemm_fwd": 0, "wkv6_fwd": 0,
+            "moe_gemm_fwd": 2 * gemms * steps, "wkv6_fwd": 0,
             "flash_attention_bwd": L * steps,
-            "rmsnorm_bwd": (norms * L + 1) * steps}
+            "rmsnorm_bwd": (norms * L + 1) * steps,
+            "moe_gemm_dgrad": gemms * steps, "moe_gemm_wgrad": gemms * steps}
 
 
 class GradientCheck:
     """Trainer hook: every parameter leaf has a finite, non-zero gradient
     after each step, and each layer's slice of a stacked leaf too (a
-    detached kernel output would leave the layers below it at zero)."""
+    detached kernel output would leave the layers below it at zero); the
+    routed experts' leaves (layers, experts, ...) each expert's slice of
+    each layer, where an expert that was routed no token has a zero slice:
+    those are counted (``idle_experts``: the most over the layers' and
+    gradient leaves' counts, each step), not failed."""
 
     def __init__(self):
         self.step_times = []
+        self.idle_experts = []
 
     def __call__(self, step, metrics, trainer) -> None:
         torch.cuda.synchronize()
         self.step_times.append(time.perf_counter())
-        bad = []
+        bad, idle = [], 0
         for key, t in flatten_with_paths(trainer.state.params):
             g = t.grad
             if g is None:
                 bad.append(f"{key}: no gradient")
                 continue
-            per = g.flatten(1).abs().amax(1) if key.startswith("g") \
-                else g.abs().amax().reshape(1)
-            if not bool(torch.isfinite(per).all()) or not bool((per > 0).all()):
-                bad.append(f"{key}: zero or non-finite in slices "
+            expert = "/ffn/w" in key and g.dim() == 4
+            per = (g.flatten(2).abs().amax(2) if expert
+                   else g.flatten(1).abs().amax(1) if key.startswith("g")
+                   else g.abs().amax().reshape(1))
+            if not bool(torch.isfinite(per).all()):
+                bad.append(f"{key}: non-finite")
+            if expert:      # every layer's slice, and count idle experts
+                idle = max(idle, int((per == 0).sum()))
+                per = per.amax(1)
+            if not bool((per > 0).all()):
+                bad.append(f"{key}: zero in slices "
                            f"{(~(per > 0)).nonzero().flatten().tolist()}")
+        self.idle_experts.append(idle)
         if bad:
             raise AssertionError(f"step {step}: " + "; ".join(bad))
 
 
-def train(args) -> tuple:
-    """Train full-width llama3.1-8b cut to TRAIN["layers"] layers through
-    ``Trainer`` with the Lit Silicon hook; returns (launch counts, counts by
-    path, losses) of the trained steps."""
-    cfg = get_config(TRAIN["arch"]).replace(n_layers=TRAIN["layers"])
-    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+def train(args, setup=TRAIN) -> tuple:
+    """Train a full-width model cut to ``setup["layers"]`` layers (phase 5:
+    llama3.1-8b; 5c: deepseek-v3-16b) through ``Trainer`` with the Lit
+    Silicon hook; returns (launch counts, counts by path, losses) of the
+    trained steps."""
+    full = get_config(setup["arch"])
+    cfg = full.replace(n_layers=setup["layers"])
+    B, S, steps = setup["batch"], setup["seq"], setup["steps"]
     ck = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoints"
     tc = TrainerConfig(
         model=cfg,
-        train=TrainConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=steps,
+        train=TrainConfig(lr=setup["lr"], warmup_steps=1, total_steps=steps,
                           checkpoint_every=0, checkpoint_dir=str(ck / "full"),
                           seed=args.seed),
         data=DataConfig(global_batch=B, seq_len=S, seed=args.seed))
     hook = LitSiliconHook(      # as launch/train.py: the FULL arch workload
-        get_config(TRAIN["arch"]),
-        ManagerConfig(use_case="gpu-red", sampling_period=2, warmup=3,
-                      window_size=2), preset="mi300x")
+        full, ManagerConfig(use_case="gpu-red", sampling_period=2, warmup=3,
+                            window_size=2), preset="mi300x")
     grads = GradientCheck()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1321,12 +1459,16 @@ def train(args) -> tuple:
     trainer.init_or_restore()
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(trainer.state.params))
-    log(f"train {cfg.name} cut to {cfg.n_layers} of 32 layers: d "
-        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B fp32 "
-        f"params + 2 fp32 moments made on the card in "
+    moe = (f"; MoE layers {cfg.n_layers - cfg.moe.first_k_dense} of "
+           f"{cfg.moe.n_experts} experts of {cfg.moe.d_expert}, top-"
+           f"{cfg.moe.top_k} {cfg.moe.router}, {cfg.moe.n_shared} shared, "
+           f"capacity {moe_mod.capacity(cfg, B * S)}" if cfg.moe else "")
+    log(f"train {cfg.name} cut to {cfg.n_layers} of {full.n_layers} layers: "
+        f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}{moe}; {n_params / 1e9:.3f} B "
+        f"fp32 params + 2 fp32 moments made on the card in "
         f"{time.perf_counter() - t0:.1f} s; B {B} x S {S}, bf16 compute, "
-        f"AdamW lr {TRAIN['lr']}, gpu-red hook")
+        f"AdamW lr {setup['lr']}, gpu-red hook")
 
     log(f"launch counts before the run: "
         f"{ {k.__name__: k.launches for k in KERNELS} }; set to 0")
@@ -1370,11 +1512,17 @@ def train(args) -> tuple:
         f"step 1 {dts[0]:.1f} ms; all {['%.1f' % x for x in dts]}) = "
         f"{B * S * 1e3 / step_ms:.0f} tokens/s; peak memory {peak:.2f} GB; "
         f"{CARD}")
+    if cfg.moe:
+        n_moe = cfg.n_layers - cfg.moe.first_k_dense
+        log(f"  experts that were routed no token, of {cfg.moe.n_experts * n_moe}"
+            f" ({cfg.moe.n_experts} in each of {n_moe} MoE layers), by step: "
+            f"{grads.idle_experts}")
     device_profile(f"{cfg.name} train step", step_ms,
                    lambda: trainer.run(1), top=10)
     del trainer, metrics
     torch.cuda.empty_cache()
-    checkpoint_round_trip(ck / "reduced")
+    if setup is TRAIN:
+        checkpoint_round_trip(ck / "reduced")
     return launches, by_path, losses
 
 
@@ -1406,26 +1554,65 @@ def checkpoint_round_trip(directory: Path) -> None:
     shutil.rmtree(directory, ignore_errors=True)
 
 
-def train_kernel_vs_plain(args, B: int = 2, S: int = 2048) -> None:
-    """Loss and every gradient leaf of a 2-layer full-width llama3.1-8b cut,
-    kernel path against plain path, on the same parameters and batch."""
-    cfg = get_config(TRAIN["arch"]).replace(n_layers=2)
+@contextmanager
+def replayed_routes(routes):
+    """Route each call to the experts ``routes`` holds (the idx of another
+    run's routing calls, in order), the gates and aux from this run's
+    scores at them: a path whose bf16 roundings move a near-tied k-th score
+    still sends every token where the recorded run did."""
+    calls = iter(routes)
+    route = moe_mod._route          # what this run would route (recorded)
+
+    def replay(cfg, logits):
+        m = cfg.moe
+        route(cfg, logits)
+        idx = next(calls)
+        scores, probs = moe_mod._scores(cfg, logits)
+        gates = scores.gather(-1, idx)
+        counts = torch.zeros(m.n_experts, device=logits.device).index_add_(
+            0, idx.reshape(-1), torch.ones(idx.numel(), device=logits.device))
+        return (gates / (gates.sum(-1, keepdim=True) + 1e-9), idx,
+                moe_mod._aux(cfg, counts / (idx.shape[0] * m.top_k),
+                             probs.mean(0)))
+
+    with mock.patch.object(moe_mod, "_route", replay):
+        yield
+
+
+def train_kernel_vs_plain(args, arch: str = TRAIN["arch"], B: int = 2,
+                          S: int = 2048) -> None:
+    """Loss and every gradient leaf of a 2-layer full-width cut (deepseek:
+    the dense layer and one MoE layer), kernel path against plain path, on
+    the same parameters and batch; the plain path routes every token to
+    the experts the kernel path chose (the share it would have sent
+    elsewhere is printed)."""
+    cfg = get_config(arch).replace(n_layers=2)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     params = model.init_train_params(gen, "cuda")
     data = SyntheticTokens(DataConfig(global_batch=B, seq_len=S,
                                       seed=args.seed), cfg)
     batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
-    results = []
+    results, routes = [], []
     for plain in (False, True):
         for t in tree_leaves(params):
             t.grad = None
-        with plain_path() if plain else nullcontext():
-            loss, _ = model.loss(params, batch)
-            loss.backward()
+        with plain_path() if plain else nullcontext(), \
+                recorded_routes() as seen:
+            with replayed_routes(routes[0]) if plain and cfg.moe \
+                    else nullcontext():
+                loss, _ = model.loss(params, batch)
+                loss.backward()
+        routes.append(seen)
         results.append((float(loss.detach()),
                         [t.grad for t in tree_leaves(params)]))
     (lk, gk), (lp, gp) = results
+    if cfg.moe:
+        flips = max(float((a != b).any(-1).float().mean())
+                    for a, b in zip(*routes))
+        log(f"2-layer {arch} training: the plain path's own routing would "
+            f"send {flips:.2%} of the tokens (the most in a routing call) to "
+            f"another expert set; it routed as the kernel path did")
     rows = []
     for (key, _), a, b in zip(flatten_with_paths(params), gk, gp):
         scale = float(b.abs().max())
@@ -1433,8 +1620,8 @@ def train_kernel_vs_plain(args, B: int = 2, S: int = 2048) -> None:
                      float((a - b).abs().mean()) / float(b.abs().mean())))
     worst_max = max(r[1] for r in rows)
     worst_mean = max(r[2] for r in rows)
-    log(f"2-layer full-width training (B {B} x S {S}), kernel vs plain path: "
-        f"loss {lk:.5f} vs {lp:.5f}; gradients, worst over "
+    log(f"2-layer full-width {arch} training (B {B} x S {S}), kernel vs "
+        f"plain path: loss {lk:.5f} vs {lp:.5f}; gradients, worst over "
         f"{len(rows)} leaves: max_abs/max {worst_max:.3e}, mean_abs/mean "
         f"{worst_mean:.3e} (tol {TRAIN_TOL})")
     for key, mx, mn in rows:
@@ -1449,13 +1636,17 @@ def train_kernel_vs_plain(args, B: int = 2, S: int = 2048) -> None:
 # --------------------------------------------------------------------------- #
 # Phase 5b: FSDP training over the machine's cards
 # --------------------------------------------------------------------------- #
-def fsdp_setup(world: int) -> dict:
-    """At a world of 8, full-depth llama3.1-8b with global batch 8 x S 4096;
-    else phase 5's configuration."""
+def fsdp_setups(world: int) -> list:
+    """Phase 5's configuration, then phase 5c's (at a world of 1 only its
+    first FSDP_MOE_STEPS_WORLD1 steps); at a world of 8 both at full depth
+    with global batch 8 x S 4096."""
     if world == 8:
-        return dict(TRAIN, layers=get_config(TRAIN["arch"]).n_layers,
-                    batch=8)
-    return dict(TRAIN)
+        return [dict(t, layers=get_config(t["arch"]).n_layers, batch=8)
+                for t in (TRAIN, TRAIN_MOE)]
+    moe = dict(TRAIN_MOE, steps=FSDP_MOE_STEPS_WORLD1,
+               total_steps=TRAIN_MOE["steps"]) if world == 1 \
+        else dict(TRAIN_MOE)
+    return [dict(TRAIN), moe]
 
 
 def fsdp_worker(rank: int, world: int, port: int, seed: int, card: str,
@@ -1471,20 +1662,27 @@ def fsdp_worker(rank: int, world: int, port: int, seed: int, card: str,
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.parallel.mesh import make_host_mesh
     mesh = make_host_mesh()
+    results = {}
     try:
-        _fsdp_run(rank, world, seed, mesh, out)
+        for setup in fsdp_setups(world):
+            results[setup["arch"]] = _fsdp_run(rank, world, seed, mesh, setup)
+            torch.cuda.empty_cache()
     finally:
         torch.distributed.destroy_process_group()
+    if rank == 0:
+        Path(out).write_text(json.dumps(results))
 
 
-def _fsdp_run(rank, world, seed, mesh, out) -> None:
+def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
+    """One configuration through the FSDP trainer; rank 0 returns its
+    results (the others None)."""
     from torch.autograd import DeviceType
-    setup = fsdp_setup(world)
     cfg = get_config(setup["arch"]).replace(n_layers=setup["layers"])
     B, S, steps = setup["batch"], setup["seq"], setup["steps"]
     tc = TrainerConfig(
         model=cfg,
-        train=TrainConfig(lr=setup["lr"], warmup_steps=1, total_steps=steps,
+        train=TrainConfig(lr=setup["lr"], warmup_steps=1,
+                          total_steps=setup.get("total_steps", steps),
                           checkpoint_every=0, seed=seed,
                           checkpoint_dir=str(Path(__file__).resolve().parent
                                              / "build" / "chip_smoke_fsdp")),
@@ -1530,20 +1728,21 @@ def _fsdp_run(rank, world, seed, mesh, out) -> None:
         dts = np.diff([t0] + grads.step_times) * 1e3
         step_ms = float(np.median(dts[1:]))
         losses = [m["loss"] for m in metrics]
-        log(f"fsdp: {steps} steps in {wall:.2f} s; losses "
+        log(f"fsdp {cfg.name}: {steps} steps in {wall:.2f} s; losses "
             f"{['%.4f' % x for x in losses]}; grad norms "
             f"{['%.3f' % m['grad_norm'] for m in metrics]}")
-        log(f"fsdp world {world}: {step_ms:.1f} ms/step (median of steps "
-            f"2-{steps}; all {['%.1f' % x for x in dts]}) = "
+        log(f"fsdp world {world} {cfg.name}: {step_ms:.1f} ms/step (median "
+            f"of steps 2-{steps}; all {['%.1f' % x for x in dts]}) = "
             f"{B * S * 1e3 / step_ms:.0f} tokens/s; peak memory per card "
             f"{['%.2f' % r[2] for r in ranks]} GB; launches per rank "
             f"{launches}; {CARD}")
-    prof, busy = (device_profile(f"fsdp world {world} step", step_ms,
+    prof, busy = (device_profile(f"fsdp world {world} {cfg.name} step",
+                                 step_ms,
                                  lambda: trainer.run(1), top=10)
                   if rank == 0 else (None, 0.0))
     if rank != 0:
         trainer.run(1)                  # the profiled step runs everywhere
-        return
+        return None
     # c10d's annotation of each collective on the device timeline: the
     # device time of what NCCL ran for it (kernels; copies at world 1)
     ranges = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
@@ -1553,22 +1752,24 @@ def _fsdp_run(rank, world, seed, mesh, out) -> None:
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation and "nccl" in e.key.lower())
     coll = sum(ranges.values())
-    log(f"fsdp world {world} collectives in a step (rank 0): "
+    log(f"fsdp world {world} {cfg.name} collectives in a step (rank 0): "
         f"{coll:.2f} ms of device time "
         f"{ {k: round(v, 3) for k, v in ranges.items()} } (NCCL kernels "
         f"{nccl:.2f} ms); busy {busy:.2f} of {step_ms:.2f} ms "
         f"({100 * busy / step_ms:.1f}%); {CARD}")
-    Path(out).write_text(json.dumps({
+    return {
         "losses": losses, "step_ms": step_ms, "peak_gb": [r[2] for r in ranks],
         "busy_ms": busy, "collective_ms": coll, "nccl_ms": nccl,
         "launches": {k: sum(r[0][k] for r in ranks) for k in launches},
         "by_path": {k: {p: sum(r[1][k][p] for r in ranks) for p in v}
-                    for k, v in by_path.items()}}))
+                    for k, v in by_path.items()}}
 
 
-def fsdp_train(args, unsharded_losses) -> tuple:
+def fsdp_train(args, unsharded: dict) -> dict:
     """Phase 5b: the FSDP trainer over every card (at most 8), one spawned
-    process each; returns (launch counts, counts by path) summed over the
+    process each, on phase 5's and phase 5c's configurations; at a world of
+    1 each run's losses held to the unsharded run's (``unsharded``: arch ->
+    losses).  Returns {run: (launch counts, counts by path)} summed over the
     ranks."""
     import torch.multiprocessing as mp
     world = min(torch.cuda.device_count(), 8)
@@ -1594,34 +1795,39 @@ def fsdp_train(args, unsharded_losses) -> tuple:
         for p in ctx.processes:
             if p.is_alive():
                 p.terminate()
-    res = json.loads(out.read_text())
-    if world == 1:
-        diff = max(abs(a - b) / abs(b)
-                   for a, b in zip(res["losses"], unsharded_losses))
-        log(f"fsdp world 1 against phase 5 (unsharded, same seed): losses "
-            f"{['%.4f' % x for x in res['losses']]} vs "
-            f"{['%.4f' % x for x in unsharded_losses]}, largest difference "
-            f"{diff:.3e} of the loss (tol {FSDP_LOSS_TOL})")
-        if len(res["losses"]) != len(unsharded_losses) \
-                or diff > FSDP_LOSS_TOL:
-            raise AssertionError("fsdp: world 1 and the unsharded trainer "
-                                 "disagree")
-    if not all(np.isfinite(res["losses"])) \
-            or not res["losses"][-1] < res["losses"][0]:
-        raise AssertionError(f"fsdp: losses {res['losses']} not finite and "
-                             f"falling")
-    return res["launches"], res["by_path"]
+    runs = {}
+    for arch, res in json.loads(out.read_text()).items():
+        if world == 1:
+            # llama: within FSDP_LOSS_TOL; the MoE run bit for bit
+            want = unsharded[arch][:len(res["losses"])]
+            tol = FSDP_LOSS_TOL if arch == TRAIN["arch"] else 0.0
+            diff = max(abs(a - b) / abs(b)
+                       for a, b in zip(res["losses"], want))
+            log(f"fsdp world 1 {arch} against the unsharded run (same seed): "
+                f"losses {res['losses']} vs {want}, largest difference "
+                f"{diff:.3e} of the loss (tol {tol})")
+            if len(res["losses"]) != len(want) or diff > tol:
+                raise AssertionError(f"fsdp: world 1 and the unsharded "
+                                     f"trainer disagree on {arch}")
+        if not all(np.isfinite(res["losses"])) \
+                or not res["losses"][-1] < res["losses"][0]:
+            raise AssertionError(f"fsdp {arch}: losses {res['losses']} not "
+                                 f"finite and falling")
+        runs[f"{arch} fsdp"] = (res["launches"], res["by_path"])
+    return runs
 
 
 # --------------------------------------------------------------------------- #
 # Phase 6: device times of the redesigned and the backward kernels
 # --------------------------------------------------------------------------- #
 def backward_device_times(g, rows: dict, rounds: int = 3) -> None:
-    """Device time alone of the two backward kernels at their training
-    shapes (flash: the wgmma kernels and the simt ones kept beside them), of
-    their plain versions and of the library's backward (autograd of
-    F.scaled_dot_product_attention and of F.rms_norm), in ``rounds``
-    alternating rounds, their mean into the rows."""
+    """Device time alone of the backward kernels at their training shapes
+    (flash: the wgmma kernels and the simt ones kept beside them; the
+    grouped GEMM's dgrad and wgrad at wg / wu's E 64, C 960, d 2048, h
+    1408), of their plain versions and of the library's backward (autograd
+    of F.scaled_dot_product_attention and of F.rms_norm; torch.bmm of the
+    same product), in ``rounds`` alternating rounds, their mean into the
+    rows."""
     dev, bf = "cuda", torch.bfloat16
     q, do = (torch.randn(2, 4096, 32, 128, generator=g, device=dev).to(bf)
              for _ in range(2))
@@ -1631,7 +1837,11 @@ def backward_device_times(g, rows: dict, rounds: int = 3) -> None:
     x, dy = (torch.randn(8192, 4096, generator=g, device=dev).to(bf)
              for _ in range(2))
     w = torch.randn(4096, generator=g, device=dev)
+    ex = torch.randn(64, 960, 2048, generator=g, device=dev).to(bf)
+    ew = torch.randn(64, 2048, 1408, generator=g, device=dev).to(bf)
+    edy = torch.randn(64, 960, 1408, generator=g, device=dev).to(bf)
     fa, rms = rows["flash_attention_bwd"], rows["rmsnorm_bwd"]
+    dg, wg = rows["moe_gemm_dgrad"], rows["moe_gemm_wgrad"]
     timed = [   # (row, key, fn, kernels a call)
         (fa, "device_ms", lambda: flash_attention_bwd(
             q, k, v, o, lse, do, causal=True), 3),
@@ -1644,6 +1854,14 @@ def backward_device_times(g, rows: dict, rounds: int = 3) -> None:
         (rms, "device_ms", lambda: rmsnorm_bwd(x, w, dy), 2),
         (rms, "plain_device_ms", lambda: rmsnorm_bwd_ref(x, w, dy), 0),
         (rms, "library_device_ms", rms_norm_backward(x, w, dy), 0),
+        (dg, "device_ms", lambda: moe_gemm_dgrad(edy, ew), 1),
+        (dg, "plain_device_ms", lambda: moe_gemm_dgrad_ref(edy, ew), 0),
+        (dg, "library_device_ms", lambda: torch.bmm(edy, ew.transpose(1, 2)),
+         0),
+        (wg, "device_ms", lambda: moe_gemm_wgrad(ex, edy), 1),
+        (wg, "plain_device_ms", lambda: moe_gemm_wgrad_ref(ex, edy), 0),
+        (wg, "library_device_ms", lambda: torch.bmm(ex.transpose(1, 2), edy),
+         0),
     ]
     reads = [[device_ms(fn, iters=5, kernels=n, flush=False)
               for _, _, fn, n in timed] for _ in range(rounds)]
@@ -1719,7 +1937,8 @@ def main(argv=None) -> int:
         print(json.dumps({"host_us": host_costs(g)}), flush=True)
         return 0
     rows = [flash_checks(g), rmsnorm_checks(g), moe_gemm_checks(g),
-            wkv6_checks(g), flash_bwd_checks(g), rmsnorm_bwd_checks(g)]
+            wkv6_checks(g), flash_bwd_checks(g), rmsnorm_bwd_checks(g),
+            *moe_gemm_bwd_checks(g)]
     costs = host_costs(g)
     for row in rows:
         row.update(costs.get(row["name"], {}))
@@ -1731,10 +1950,12 @@ def main(argv=None) -> int:
     by_run["rwkv6-3b"] = serve(args, "rwkv6-3b")
     rwkv_kernel_vs_plain(args)
     torch.cuda.empty_cache()
-    launches, by_path, losses = train(args)
-    by_run["llama3.1-8b train"] = (launches, by_path)
-    train_kernel_vs_plain(args)
-    by_run["llama3.1-8b fsdp"] = fsdp_train(args, losses)
+    losses = {}
+    for setup in (TRAIN, TRAIN_MOE):                     # phases 5 and 5c
+        launches, by_path, losses[setup["arch"]] = train(args, setup)
+        by_run[f"{setup['arch']} train"] = (launches, by_path)
+        train_kernel_vs_plain(args, setup["arch"])
+    by_run.update(fsdp_train(args, losses))
     by_name = {row["name"]: row for row in rows}
     device_times(g, by_name)
     backward_device_times(g, by_name)

@@ -45,12 +45,28 @@ inline EncodeTiledFn encode_tiled_fn() {
 // layout (a base or stride that is not a multiple of 16 bytes, a box row
 // that is not a multiple of 16 bytes, or over 128 bytes with 128-byte
 // swizzle).
+// The encoder checks the base against the calling thread's current context.
+// A thread that has made no runtime call that creates one (a backward
+// thread of autograd whose first CUDA work is a launch here) has none, and
+// the encode fails; cudaSetDevice makes the device's primary context
+// current (CUDA 12), once per thread.
+inline cudaError_t make_context_current() {
+  static thread_local const cudaError_t err = [] {
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    return e != cudaSuccess ? e : cudaSetDevice(dev);
+  }();
+  return err;
+}
+
 inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
                             CUtensorMapSwizzle swizzle, int rank,
                             const void* base, const uint64_t* dims,
                             const uint64_t* strides, const uint32_t* box) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const cudaError_t ctx = make_context_current();
+  if (ctx != cudaSuccess) return ctx;
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], e[5];
   for (int i = 0; i < rank; ++i) {

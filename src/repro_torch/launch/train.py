@@ -4,12 +4,19 @@
       --global-batch 2 --seq-len 4096 --steps 10 --use-case gpu-red
   python -m repro_torch.launch.train --arch llama3.1-8b --reduced \\
       --steps 30 --lr 3e-3 --device cpu
+  python -m repro_torch.launch.train --arch deepseek-v3-16b --layers 5 \\
+      --global-batch 2 --seq-len 4096 --steps 10 --use-case gpu-red
+  python -m repro_torch.launch.train --arch deepseek-v3-16b --reduced \\
+      --steps 30 --lr 3e-3 --device cpu
 
 and sharded (FSDP, ZeRO-3 over the ``data`` axis), one process per card,
 or per CPU process with gloo:
 
   torchrun --nproc_per_node 8 -m repro_torch.launch.train \\
       --arch llama3.1-8b --global-batch 8 --seq-len 4096 --steps 10
+  torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
+      --arch deepseek-v3-16b --layers 16 --global-batch 4 --seq-len 4096 \\
+      --steps 8 --checkpoint-every 0
   python -m torch.distributed.run --nproc_per_node 2 \\
       -m repro_torch.launch.train --arch llama3.1-8b --reduced --steps 30 \\
       --lr 3e-3 --device cpu
@@ -17,7 +24,8 @@ or per CPU process with gloo:
 The flags of ``python -m repro.launch.train``, plus ``--device`` and
 ``--layers`` (a depth cut at full width: full-depth llama3.1-8b's fp32
 parameters, gradients and AdamW moments, ~128 GB, do not fit one card, but
-do fit a node's cards sharded).  Under torchrun (``WORLD_SIZE`` above 1 in
+do fit a node's cards sharded; an MoE model keeps its dense first layers
+and cuts the MoE ones).  Under torchrun (``WORLD_SIZE`` above 1 in
 the environment) it builds the host mesh and trains sharded; only rank 0
 prints and writes ``--metrics-out``.  Runs synthetic data -> loss
 (per-layer activation checkpoints) -> backward -> AdamW -> atomic
@@ -73,6 +81,10 @@ def main(argv=None):
     model_cfg = (get_reduced_config(args.arch) if args.reduced
                  else get_config(args.arch))
     if args.layers:
+        dense = model_cfg.moe.first_k_dense if model_cfg.moe else 0
+        if args.layers <= dense:
+            ap.error(f"--layers {args.layers}: {args.arch} keeps its "
+                     f"{dense} dense first layer(s), so it needs more")
         model_cfg = model_cfg.replace(n_layers=args.layers)
     tc = TrainerConfig(
         model=model_cfg,

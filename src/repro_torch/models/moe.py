@@ -3,21 +3,38 @@ capacity-based padded dispatch (stable sort, token-dropping: the padded
 grouped GEMM of the paper's §VII-C), shared experts, and the load-balancing
 auxiliary loss.
 
-The torch counterpart of ``repro.models.moe`` on one device (its
-``"scatter"`` dispatch).  The three expert contractions, (E, C, d) x
-(E, d, h) and (E, C, h) x (E, h, d), go through ``kernels.moe_gemm``: the
-CUDA grouped GEMM on a card, its plain version on the CPU.
+The torch counterpart of ``repro.models.moe`` (its global-capacity
+dispatch).  The three expert contractions, (E, C, d) x (E, d, h) and
+(E, C, h) x (E, h, d), go through ``kernels.moe_gemm``: the CUDA grouped
+GEMM (and its two backward kernels) on a card, its plain version on the
+CPU.  The expert weights are cast to the activations' dtype at use, as
+JAX casts them (fp32 masters in training).
 
-Dispatch and combine are gathers with a trash slot, as in JAX, and never
-ask the host for a count: no boolean-mask indexing.  The combine gathers
-each token's k expert outputs back into token order and sums them over k,
-so its result does not depend on the order of atomic adds.
+Dispatch and combine are gathers with a trash slot, as in JAX.  The
+combine gathers each token's k expert outputs back into token order and
+sums them over k, and both backwards gather through the inverse maps
+(``_Gather``), so no result depends on the order of atomic adds: a step
+gives the same bits every run.
+
+Sharded training (``MoEGroup``: each rank holds its rows of the global
+batch) keeps JAX's global semantics: the capacity follows the global token
+count, an assignment is kept by its position among all the batch's
+assignments to its expert (rows rank-major, as the global batch stacks
+them: one all-gather of the per-expert counts a layer), and the aux loss
+uses the global expert counts, each rank's part linear in its own router
+probabilities, so that the parts sum to the global aux and its gradient.
+A rank's buffer holds its kept assignments only (the largest count over
+experts, rounded up to 8), which asks the host for that count.  Where every
+rank holds the whole batch (rows the world does not divide), each routes it
+as one device would and carries 1/world of the aux.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.models.common import ParamSpec, activation_fn
@@ -43,27 +60,51 @@ def moe_specs(cfg) -> Dict[str, ParamSpec]:
     return s
 
 
+@dataclass(frozen=True)
+class MoEGroup:
+    """The ranks a sharded step's MoE layers route over: ``split`` when each
+    rank holds its own rows of the global batch (contiguous, rank-major),
+    else every rank holds all of them."""
+    group: Any
+    world: int
+    rank: int
+    split: bool
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(world,) + t.shape: every rank's t, in rank order."""
+        out = t.new_empty((self.world * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
+        return out.view((self.world,) + tuple(t.shape))
+
+
+def _scores(cfg, logits):
+    """fp32 logits (T, E) -> (the scores top-k picks from, the probabilities
+    the aux loss averages)."""
+    if cfg.moe.router == "sigmoid":                # deepseek-v3 style
+        scores = torch.sigmoid(logits)
+        return scores, scores / (scores.sum(-1, keepdim=True) + 1e-9)
+    probs = torch.softmax(logits, dim=-1)
+    return probs, probs
+
+
+def _aux(cfg, f_e, p_e):
+    """load-balancing aux loss: E * sum_e f_e * P_e"""
+    m = cfg.moe
+    return m.aux_loss_weight * m.n_experts * torch.sum(f_e * p_e)
+
+
 def _route(cfg, logits):
     """fp32 logits (T, E) -> (gates (T,k), idx (T,k), aux_loss scalar)."""
     m = cfg.moe
-    if m.router == "sigmoid":                      # deepseek-v3 style
-        scores = torch.sigmoid(logits)
-        gates, idx = torch.topk(scores, m.top_k, dim=-1)
-        probs = scores / (scores.sum(-1, keepdim=True) + 1e-9)
-    else:
-        probs = torch.softmax(logits, dim=-1)
-        gates, idx = torch.topk(probs, m.top_k, dim=-1)
+    scores, probs = _scores(cfg, logits)
+    gates, idx = torch.topk(scores, m.top_k, dim=-1)
     gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
-    # load-balancing aux loss: E * sum_e f_e * P_e
     T = logits.shape[0]
     counts = torch.zeros(m.n_experts, dtype=torch.float32,
                          device=logits.device)
     counts.scatter_add_(0, idx.reshape(-1),
                         torch.ones(idx.numel(), device=logits.device))
-    f_e = counts / (T * m.top_k)
-    p_e = probs.mean(0)
-    aux = m.aux_loss_weight * m.n_experts * torch.sum(f_e * p_e)
-    return gates, idx, aux
+    return gates, idx, _aux(cfg, counts / (T * m.top_k), probs.mean(0))
 
 
 def capacity(cfg, n_tokens: int) -> int:
@@ -72,17 +113,44 @@ def capacity(cfg, n_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)                  # round up to 8
 
 
-def _dispatch_combine_local(cfg, p, xs, gates, idx):
+class _Gather(torch.autograd.Function):
+    """Rows ``[a; 0][index]`` (an index of len(a) reads the zero row), whose
+    backward gathers too: ``inverse`` holds, for each row of a, the k rows
+    of the output that read it (len(output) where fewer did), and a row's
+    gradient is their sum over k, in order.  The dispatch (a token's row
+    read by its k slots) and the combine (a slot's row read by its one
+    assignment) are such gathers; autograd's own backward of a gather
+    scatter-adds (by atomics on a card, and in series where many indices
+    meet, as the dropped assignments do at the trash slot)."""
+
+    @staticmethod
+    def forward(ctx, a, index, inverse, k: int):
+        ctx.save_for_backward(inverse)
+        ctx.k = k
+        return torch.cat([a, a.new_zeros(1, a.shape[1])])[index]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inverse,) = ctx.saved_tensors
+        gz = torch.cat([g, g.new_zeros(1, g.shape[1])])[inverse]
+        return (gz.view(-1, ctx.k, g.shape[1]).sum(1) if ctx.k > 1 else gz,
+                None, None, None)
+
+
+def _dispatch_combine_local(cfg, p, xs, gates, idx, offset=None, C=None):
     """Dispatch -> padded expert GEMMs -> combine.
 
     xs: (T, d); gates/idx: (T, k).  Slot ``se * C + pos`` holds the pos-th
     assignment (in token order) to expert se; assignments past the capacity
-    C go to the trash slot E * C and contribute zero.
+    C go to the trash slot E * C and contribute zero.  ``offset`` (E,) and
+    ``C`` (sharded training): the assignments of the ranks before this one
+    to each expert, and the global capacity; an assignment is kept where
+    its global position ``offset + pos`` is below C, and the buffer holds
+    this rank's kept assignments only.
     """
     m = cfg.moe
     T, d = xs.shape
     E, k = m.n_experts, m.top_k
-    C = capacity(cfg, T)
     dev = xs.device
 
     flat_e = idx.reshape(T * k)
@@ -93,36 +161,64 @@ def _dispatch_combine_local(cfg, p, xs, gates, idx):
     counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=dev) - starts[se]
-    dest = torch.where(pos < C, se * C + pos, E * C)       # E*C = trash slot
+    if offset is None:
+        C = capacity(cfg, T)
+        keep = pos < C
+    else:
+        keep = offset[se] + pos < C
+        kept = (C - offset).clamp_min(0).minimum(counts)
+        C = max(8, -(-int(kept.max()) // 8) * 8)       # a read by the host
+    dest = torch.where(keep, se * C + pos, E * C)          # E*C = trash slot
+    dest_tok = torch.empty_like(dest)
+    dest_tok[order] = dest                                  # (t, j) order
 
-    # slot -> source row of xs; empty slots read the zero row T.  Only the
-    # trash slot is written twice, and it is never read.
+    # slot -> source row of xs (empty slots read the zero row T), and slot
+    # -> its assignment t * k + j (empty slots: T * k).  Only the trash slot
+    # is written more than once, and it is never read.
     src = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
     src[dest] = flat_t[order]
-    xz = torch.cat([xs, xs.new_zeros(1, d)])
-    eb = xz[src[:E * C]].view(E, C, d)
+    slot_of = torch.full((E * C + 1,), T * k, dtype=torch.int64, device=dev)
+    slot_of[dest] = order
+    eb = _Gather.apply(xs, src[:E * C], dest_tok, k).view(E, C, d)
 
     # ---- grouped expert GEMMs (padded — balanced compute, paper §VII-C) ----
     act = activation_fn(cfg.activation)
-    h = act(moe_ops.moe_gemm(eb, p["wg"])) * moe_ops.moe_gemm(eb, p["wu"])
-    y = moe_ops.moe_gemm(h, p["wd"])
+    dt = xs.dtype
+    h = act(moe_ops.moe_gemm(eb, p["wg"].to(dt))) * \
+        moe_ops.moe_gemm(eb, p["wu"].to(dt))
+    y = moe_ops.moe_gemm(h, p["wd"].to(dt))
 
     # ---- combine: gather back in token order, gate-weight, sum over k ------
-    yflat = torch.cat([y.reshape(E * C, d), y.new_zeros(1, d)])
-    dest_tok = torch.empty_like(dest)
-    dest_tok[order] = dest                                  # (t, j) order
-    back = yflat[dest_tok] * gates.reshape(T * k, 1).to(xs.dtype)
-    return back.view(T, k, d).sum(1)
+    back = _Gather.apply(y.reshape(E * C, d), dest_tok, slot_of[:E * C], 1)
+    return (back * gates.reshape(T * k, 1).to(dt)).view(T, k, d).sum(1)
 
 
-def moe_forward(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_forward(cfg, p, x, group: Optional[MoEGroup] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar).  Capacity follows
-    the call's own token count B * S."""
+    the call's own token count B * S, or under a split ``group`` the global
+    batch's, with this rank's part of the global aux."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     logits = xf.float() @ p["router"].float()
     gates, idx, aux = _route(cfg, logits)
-    out = _dispatch_combine_local(cfg, p, xf, gates, idx)
+    if group is None or not group.split:
+        if group is not None:       # every rank routes the whole batch
+            aux = aux / group.world
+        out = _dispatch_combine_local(cfg, p, xf, gates, idx)
+    else:
+        m = cfg.moe
+        counts = torch.zeros(m.n_experts, dtype=torch.int64, device=x.device)
+        counts.scatter_add_(0, idx.reshape(-1), torch.ones_like(
+            idx.reshape(-1)))
+        every = group.all_gather(counts)                 # (world, E)
+        T = B * S * group.world
+        _, probs = _scores(cfg, logits)
+        aux = _aux(cfg, every.sum(0).float() / (T * m.top_k),
+                   probs.sum(0) / T)
+        out = _dispatch_combine_local(cfg, p, xf, gates, idx,
+                                      offset=every[:group.rank].sum(0),
+                                      C=capacity(cfg, T))
     if cfg.moe.n_shared:
         out = out + mlp(cfg, p["shared"], xf)
     return out.reshape(B, S, d), aux

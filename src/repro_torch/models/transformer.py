@@ -114,15 +114,16 @@ class DecoderOnlyLM:
                                      dtype=torch.float32, device=device))
 
     # ----------------------------------------------------------------- block
-    def _ffn(self, i: int, lp, x):
+    def _ffn(self, i: int, lp, x, moe_group=None):
         """Residual + the FFN of layer i (dense MLP or MoE), and the MoE
         aux loss (None for a dense layer).  The MoE block's capacity follows
-        the call's token count."""
+        the call's token count, or the global batch's under a split
+        ``moe_group`` (``models.moe.MoEGroup``, sharded training)."""
         cfg = self.cfg
         h = apply_norm(cfg, lp["ln2"], x)
         if self.dense_layers[i]:
             return x + mlp(cfg, lp["ffn"], h), None
-        out, aux = moe_forward(cfg, lp["ffn"], h)
+        out, aux = moe_forward(cfg, lp["ffn"], h, moe_group)
         return x + out, aux
 
     def _embed(self, params, tokens):
@@ -138,7 +139,7 @@ class DecoderOnlyLM:
             logits = logits.masked_fill(pad, -1e30)
         return logits
 
-    def _layer(self, i: int, lp, x, positions, gather=None):
+    def _layer(self, i: int, lp, x, positions, gather=None, moe_group=None):
         """Layer i of the forward pass: (x, the MoE aux loss or None).
         ``gather``: the layer's leaves are shards, gathered here (inside
         the activation checkpoint, so the recompute gathers them again)."""
@@ -147,15 +148,16 @@ class DecoderOnlyLM:
         h = apply_norm(self.cfg, lp["ln1"], x)
         return self._ffn(i, lp, x + attn.attention(
             self.cfg, lp["attn"], h, positions, causal=True,
-            window_eff=self.cfg.window))
+            window_eff=self.cfg.window), moe_group)
 
     # --------------------------------------------------------------- forward
-    def forward(self, params, batch, *, remat: bool = False, gather=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, params, batch, *, remat: bool = False, gather=None,
+                moe_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced logits (B, S, V) and the summed MoE aux loss.
         ``remat``: each layer under one activation checkpoint.  ``gather``
         (sharded training): ``params`` holds shards, and each part is
-        gathered around its use, the layers' inside their checkpoints."""
+        gathered around its use, the layers' inside their checkpoints;
+        ``moe_group``: the ranks the MoE layers route over."""
         def whole(tree):
             return tree if gather is None else gather(tree)
         tokens = batch["tokens"]
@@ -166,9 +168,9 @@ class DecoderOnlyLM:
         for i, lp in enumerate(params["layers"]):
             if remat:
                 x, a = checkpoint(self._layer, i, lp, x, positions, gather,
-                                  use_reentrant=False)
+                                  moe_group, use_reentrant=False)
             else:
-                x, a = self._layer(i, lp, x, positions, gather)
+                x, a = self._layer(i, lp, x, positions, gather, moe_group)
             if a is not None:
                 aux = aux + a
         head = "embed" if self.cfg.tie_embeddings else "lm_head"
@@ -182,14 +184,16 @@ class DecoderOnlyLM:
         z-loss at ``z_loss_weight`` (1e-4 unless set on the model), as the
         JAX model's ``loss``.  ``fsdp`` (``repro_torch.parallel.fsdp.FSDP``):
         params are this rank's shards and batch its rows of the global
-        batch; the parts are gathered around their use and the CE and
-        z-loss sums divided by the global token count."""
+        batch; the parts are gathered around their use, the CE and z-loss
+        sums divided by the global token count, and the MoE layers route
+        over ``fsdp.moe_group``."""
         if fsdp is None:
             logits, aux = self.forward(self.split_layers(params), batch,
                                        remat=True)
         else:
             logits, aux = self.forward(fsdp.split(params), batch, remat=True,
-                                       gather=fsdp.gather)
+                                       gather=fsdp.gather,
+                                       moe_group=fsdp.moe_group)
         loss, metrics = cross_entropy_loss(
             logits, batch["labels"],
             z_loss_weight=getattr(self, "z_loss_weight", 1e-4),

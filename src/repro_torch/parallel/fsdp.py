@@ -22,6 +22,11 @@ leaf whose dimension the axis does not divide, and every leaf with no
     all-reduced count of valid tokens, so the sum over ranks, which the
     gradients carry, is the global batch's mean (a replicated batch counts
     each token once per rank, which the division undoes);
+  * the MoE layers route over the group (``models.moe.MoEGroup``): with
+    split rows, by the global batch's capacity and positions and with its
+    aux loss shared out linearly (an all-gather of the per-expert counts a
+    layer); with replicated rows, each rank as one device, carrying 1/world
+    of the aux; the logged ``aux_loss``, summed over ranks, is the global;
   * the clip reads the global norm: every leaf's squared sum in the
     single-device order, a sharded leaf's summed over ranks, a whole leaf's
     counted once;
@@ -48,6 +53,7 @@ from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.common import (init_params, layer_views,
                                        tree_leaves, tree_map_specs,
                                        trainable)
+from repro_torch.models.moe import MoEGroup
 from repro_torch.parallel.act import activation_sharding, local_rows
 from repro_torch.parallel.mesh import TP_ITEM, mesh_shape
 from repro_torch.parallel.sharding import ShardingRules, spec_axes
@@ -176,6 +182,7 @@ class FSDP:
         self.world = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
         self.device = torch.device(device)
+        self.moe_group: Optional[MoEGroup] = None   # set by each step
 
         def place(_path, s):
             spec = self.rules.spec_for(s.axes, s.shape)
@@ -266,6 +273,8 @@ class FSDP:
             local = {k: local_rows(v, self.rank) for k, v in batch.items()}
         replicas = self.world if local["labels"].shape[0] == \
             batch["labels"].shape[0] else 1
+        self.moe_group = None if self.world == 1 else MoEGroup(
+            self.group, self.world, self.rank, split=replicas == 1)
         loss, metrics = self.model.loss(params, local, fsdp=self)
         loss.backward()
         for p, pl in zip(tree_leaves(params), tree_leaves(self.placements)):

@@ -16,8 +16,8 @@ norm are global, so the watchdog reads the same verdict on every rank; the
 hooks run on rank 0 only (the hook simulates the paper's 8-device node
 whatever the world size); rank 0 writes checkpoints whole, in the JAX
 layout, and every rank restores its shard.  Without a mesh it trains on one
-device, unsharded.  The dense family trains; MoE and RWKV6 models raise
-until their kernels have backward passes.
+device, unsharded.  The dense and MoE families train; RWKV6 models raise
+until the WKV6 kernel has a backward pass.
 """
 from __future__ import annotations
 
@@ -44,8 +44,6 @@ from repro_torch.train.optimizer import adamw_update, init_state, tree_map
 
 # what a later slice brings, by model family
 _NOT_TRAINED = {
-    "moe": "MoE training needs the grouped GEMM's backward (ROADMAP.md "
-           "slice 8)",
     "rwkv": "RWKV6 training needs the WKV6 backward (ROADMAP.md slice 10)",
 }
 

@@ -27,8 +27,10 @@ from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 from repro_torch.kernels.moe_gemm import ops as moe_ops
-from repro_torch.kernels.moe_gemm.kernel import moe_gemm_fwd
-from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.moe_gemm.kernel import (moe_gemm_dgrad,
+                                                 moe_gemm_fwd,
+                                                 moe_gemm_wgrad)
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_bwd_ref, moe_gemm_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd, rmsnorm_fwd
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
@@ -607,21 +609,133 @@ def test_rmsnorm_autograd_function_runs_the_kernels(cuda):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_gradients(cuda):
-    """The grouped GEMM and WKV6 kernels have no backward: with a gradient
-    needed they raise instead of returning a detached output; without one
-    (inference) they run."""
-    x = torch.randn(2, 8, 16, device=cuda)
-    w = torch.randn(2, 16, 4, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        moe_ops.moe_gemm(x, w)
-    with torch.no_grad():
-        assert moe_ops.moe_gemm(x, w).shape == (2, 8, 4)
+    """The WKV6 kernel has no backward: with a gradient needed it raises
+    instead of returning a detached output; without one (inference) it
+    runs."""
     r, k, v, wl, u, s0 = _wkv_inputs(cuda, 1, 4, 2, 16, torch.float32, True)
     u.requires_grad_()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         wkv_ops.wkv6(r, k, v, wl, u, s0)
     with torch.inference_mode():
         assert wkv_ops.wkv6(r, k, v, wl, u, s0)[0].shape == r.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ECdh,path", [
+    ((3, 37, 100, 45), "simt"), ((2, 40, 96, 100), "simt"),
+    ((2, 1, 64, 64), "wgmma"), ((3, 8, 72, 136), "wgmma"),
+    ((3, 64, 136, 72), "wgmma"), ((2, 65, 72, 136), "wgmma"),
+    ((2, 130, 136, 72), "wgmma"), ((2, 300, 264, 200), "wgmma"),
+    ((4, 129, 1408, 2048), "wgmma")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_backward_matches_plain(cuda, dtype, ECdh, path):
+    """dgrad and wgrad against the plain backward, relative to each
+    gradient's largest magnitude: C around wgmma's 64- and 128-row tiles
+    (dgrad's rows) and 64-deep stages (wgrad's contraction), d and h
+    multiples of 8 but not of 64, both orientations; fp32 and bf16 that
+    TMA cannot read on the CUDA-core kernel."""
+    E, C, d, h = ECdh
+    g = torch.Generator(device=cuda).manual_seed(C)
+    x = torch.randn(E, C, d, generator=g, device=cuda).to(dtype)
+    w = torch.randn(E, d, h, generator=g, device=cuda).to(dtype)
+    dy = torch.randn(E, C, h, generator=g, device=cuda).to(dtype)
+    dx, pd = _path(moe_gemm_dgrad, lambda: moe_gemm_dgrad(dy, w))
+    dw, pw = _path(moe_gemm_wgrad, lambda: moe_gemm_wgrad(x, dy))
+    assert (pd, pw) == ((path, path) if dtype == torch.bfloat16
+                        else ("simt", "simt"))
+    want = moe_gemm_bwd_ref(x, w, dy)
+    for got, ref in zip((dx, dw), want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        _rel(got, ref, TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_moe_gemm_backward_edges_and_rejects(cuda):
+    """C 0 gives a zero weight gradient and an empty dx; h 0 a zero dx; the
+    wrappers refuse mixed dtypes and non-contiguous operands, and count one
+    launch a call."""
+    x = torch.zeros(2, 0, 16, device=cuda)
+    dy = torch.zeros(2, 0, 8, device=cuda)
+    w = torch.ones(2, 16, 8, device=cuda)
+    assert moe_gemm_dgrad(dy, w).shape == (2, 0, 16)
+    assert torch.equal(moe_gemm_wgrad(x, dy), torch.zeros(2, 16, 8,
+                                                          device=cuda))
+    assert torch.equal(moe_gemm_dgrad(torch.ones(2, 3, 0, device=cuda),
+                                      torch.ones(2, 16, 0, device=cuda)),
+                       torch.zeros(2, 3, 16, device=cuda))
+    x, dy = torch.ones(2, 8, 16, device=cuda), torch.ones(2, 8, 8,
+                                                          device=cuda)
+    n = moe_gemm_wgrad.launches
+    moe_gemm_wgrad(x, dy)
+    assert moe_gemm_wgrad.launches == n + 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        moe_gemm_wgrad(x, dy.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gemm_dgrad(dy, torch.ones(2, 8, 16, device=cuda).transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_moe_gemm_autograd_function_runs_the_kernels(cuda):
+    """With a gradient needed the op runs the forward kernel and, in the
+    backward, one dgrad and one wgrad, whose outputs are the gradients;
+    without one it launches the forward alone."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, 96, 72, generator=g, device=cuda).bfloat16()
+    w = torch.randn(4, 72, 136, generator=g, device=cuda).bfloat16()
+    dy = torch.randn(4, 96, 136, generator=g, device=cuda).bfloat16()
+    fns = (moe_gemm_fwd, moe_gemm_dgrad, moe_gemm_wgrad)
+    before = [fn.launches for fn in fns]
+    with torch.no_grad():
+        moe_ops.moe_gemm(x.requires_grad_(), w.requires_grad_())
+    assert [fn.launches for fn in fns] == [before[0] + 1] + before[1:]
+    y = moe_ops.moe_gemm(x, w)
+    y.backward(dy)
+    assert [fn.launches for fn in fns] == [b + 2 if i == 0 else b + 1
+                                           for i, b in enumerate(before)]
+    assert torch.equal(y, moe_gemm_fwd(x.detach(), w.detach()))
+    assert torch.equal(x.grad, moe_gemm_dgrad(dy, w.detach()))
+    assert torch.equal(w.grad, moe_gemm_wgrad(x.detach(), dy))
+
+
+FRESH_THREAD = """
+import torch
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.moe_gemm import ops as moe_ops
+torch.manual_seed(0)
+kind = {kind!r}
+if kind == "moe_gemm":
+    x = torch.randn(2, 96, 72, device="cuda").bfloat16().requires_grad_()
+    w = torch.randn(2, 72, 136, device="cuda").bfloat16().requires_grad_()
+    moe_ops.moe_gemm(x, w).float().sum().backward()
+    grads = (x.grad, w.grad)
+else:
+    q, k, v = (torch.randn(1, 128, 2, 64, device="cuda").bfloat16()
+               .requires_grad_() for _ in range(3))
+    fa_ops.flash_attention(q, k, v, causal=True).float().sum().backward()
+    grads = (q.grad, k.grad, v.grad)
+torch.cuda.synchronize()
+assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["moe_gemm", "flash_attention"])
+def test_backward_kernels_launch_as_the_first_work_of_autograds_thread(
+        cuda, kind):
+    """A fresh process whose first CUDA backward is a TMA kernel's: the
+    tensor maps are encoded on autograd's device thread, which has made no
+    runtime call yet (no current context, so the encoder refused the base
+    until hopper.cuh's make_map made the primary context current)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out = subprocess.run([sys.executable, "-c", FRESH_THREAD.format(kind=kind)],
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 def _to_leaves(tree, device):
@@ -664,6 +778,109 @@ def test_reduced_training_step_on_card_matches_cpu(cuda, arch):
     assert abs(float(lg.detach()) - float(lc.detach())) <= 1e-5 * float(lc.detach())
     for a, b in zip(tree_leaves(on_card), tree_leaves(params)):
         _rel(a.grad.cpu(), b.grad, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-16b", "deepseek-moe-16b"])
+def test_reduced_moe_training_step_on_card_matches_cpu(cuda, arch):
+    """Reduced fp32 MoE models: the loss and every gradient leaf through the
+    kernels (the grouped GEMM's forward, dgrad and wgrad on CUDA cores)
+    equal the CPU's plain path within 1e-4 of each leaf's largest, with
+    3 forward GEMMs a MoE layer twice (the recompute) and one dgrad and one
+    wgrad each."""
+    cfg = get_reduced_config(arch).replace(compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init_train_params(torch.Generator().manual_seed(0), "cpu")
+    on_card = _to_leaves(params, cuda)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48)))
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -100
+    lc, _ = model.loss(params, {"tokens": toks, "labels": labels})
+    lc.backward()
+    kernels = (moe_gemm_fwd, moe_gemm_dgrad, moe_gemm_wgrad)
+    for fn in kernels:
+        _build.reset_counts(fn)
+    lg, _ = model.loss(on_card, {"tokens": toks.to(cuda),
+                                 "labels": labels.to(cuda)})
+    lg.backward()
+    torch.cuda.synchronize()
+    n = 3 * (cfg.n_layers - cfg.moe.first_k_dense)
+    assert [fn.launches for fn in kernels] == [2 * n, n, n]
+    assert abs(float(lg.detach()) - float(lc.detach())) <= 1e-5 * float(lc.detach())
+    for a, b in zip(tree_leaves(on_card), tree_leaves(params)):
+        _rel(a.grad.cpu(), b.grad, 1e-4)
+
+
+def _moe_step(tc, mesh=None):
+    """One training step of ``tc``: (its metrics, the state by key)."""
+    from repro_torch.train.checkpoint import flatten_with_paths
+    from repro_torch.train.train_loop import Trainer
+    tr = Trainer(tc, device="cuda", mesh=mesh)
+    log = tr.run(1)
+    state = dict(flatten_with_paths(tr.state))
+    grads = {k: t.grad for k, t in state.items() if t.grad is not None}
+    del tr
+    torch.cuda.empty_cache()
+    return log[0], state, grads
+
+
+def _moe_config(tmp_path):
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.train_loop import TrainerConfig
+    return TrainerConfig(
+        model=get_config("deepseek-v3-16b").replace(n_layers=2),
+        train=TrainConfig(lr=1e-3, warmup_steps=1, total_steps=4,
+                          checkpoint_every=0, checkpoint_dir=str(tmp_path)),
+        data=DataConfig(global_batch=2, seq_len=1024))
+
+
+@pytest.mark.cuda
+def test_moe_training_step_gives_the_same_bits_twice(cuda, tmp_path):
+    """Full-width deepseek-v3-16b cut to 2 layers (the dense one and a MoE
+    one), bf16 compute: two runs of a step from the same seed give the same
+    loss, gradients and updated state, bit for bit (no atomics on the
+    path: the dispatch's backward gathers, the GEMMs split nothing)."""
+    tc = _moe_config(tmp_path)
+    a, state_a, grads_a = _moe_step(tc)
+    b, state_b, grads_b = _moe_step(tc)
+    assert a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+    assert grads_a.keys() == grads_b.keys() == \
+        {k for k in state_a if k.startswith("params/")}
+    for key in state_a:
+        assert torch.equal(state_a[key], state_b[key]), key
+        if key in grads_a:
+            assert torch.equal(grads_a[key], grads_b[key]), key
+
+
+@pytest.mark.cuda
+def test_fsdp_world1_moe_step_equals_unsharded_step(cuda, monkeypatch,
+                                                    tmp_path):
+    """The MoE step of ``test_moe_training_step_gives_the_same_bits_twice``
+    through the FSDP path over an NCCL group of one: at world 1 the MoE
+    layers route as one device and the collectives copy, so loss, norm and
+    state equal the unsharded step's bit for bit."""
+    import socket
+
+    from repro_torch.parallel.mesh import make_host_mesh
+    tc = _moe_config(tmp_path)
+    want, plain, _ = _moe_step(tc)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    try:
+        got, sharded, _ = _moe_step(tc, make_host_mesh())
+    finally:
+        torch.distributed.destroy_process_group()
+    for k in ("loss", "ce_loss", "aux_loss", "grad_norm"):
+        assert got[k] == want[k], k
+    assert sharded.keys() == plain.keys()
+    for key, b in plain.items():
+        assert torch.equal(sharded[key], b), key
 
 
 @pytest.mark.cuda

@@ -18,8 +18,14 @@
   the worst leaf read 5.4e-6.  A wrong shard moves parameters (~0.3) by
   ``lr``, 3e-3 of the leaf, and a lost or doubled reduction moves the
   moments by 50-300%.
+* The same for reduced fp32 deepseek-v3-16b (MoE) with capacity factor
+  0.5, so that tokens are dropped: split rows (the global dispatch: the
+  global capacity and positions, the aux from the global counts) and rows
+  the world does not divide (each rank routes the whole batch); the aux
+  loss too.
 * The port at world 2 against JAX's ``build_train_step`` on one device,
-  from the same (JAX-made) initial state.
+  from the same (JAX-made) initial state, for llama3.1-8b and for
+  deepseek-v3-16b with drops.
 * Checkpoints across worlds: a world-2 checkpoint restores in a
   single-process torch ``Trainer`` and through the JAX
   ``CheckpointManager``; a single-process checkpoint restores at world 2
@@ -32,6 +38,7 @@
   fallback from CUDA to gloo.
 """
 import contextlib
+import dataclasses
 import io
 import os
 import socket
@@ -59,6 +66,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.configs.registry import _ARCH_MODULES
 from repro_torch.models import build_model
 from repro_torch.models.common import tree_leaves
+from repro_torch.models.moe import capacity
 from repro_torch.parallel.fsdp import FSDP
 from repro_torch.parallel.mesh import make_host_mesh
 from repro_torch.parallel.sharding import ShardingRules
@@ -68,7 +76,9 @@ from repro_torch.train.train_loop import Trainer, TrainerConfig
 
 TOL = 2e-5                      # losses and norms (tests/test_kernels.py)
 STATE_TOL = 1e-4                # gathered state, of each leaf's largest
-METRICS = ("loss", "ce_loss", "z_loss", "tokens", "grad_norm")
+METRICS = ("loss", "ce_loss", "z_loss", "aux_loss", "tokens", "grad_norm")
+MOE = "deepseek-v3-16b"
+DROPS = dict(capacity_factor=0.5)      # tokens dropped at these batches
 SPAWN_TIMEOUT = 240.0
 
 
@@ -128,10 +138,16 @@ class UnevenLabels:
         return b
 
 
-def _config(ckdir, *, batch=8, seq=16, clip=1e9, every=0):
+def _model_config(arch):
+    cfg = get_reduced_config(arch).replace(compute_dtype="float32")
+    return cfg if cfg.moe is None else \
+        cfg.replace(moe=dataclasses.replace(cfg.moe, **DROPS))
+
+
+def _config(ckdir, *, batch=8, seq=16, clip=1e9, every=0,
+            arch="llama3.1-8b"):
     return TrainerConfig(
-        model=get_reduced_config("llama3.1-8b").replace(
-            compute_dtype="float32"),
+        model=_model_config(arch),
         train=TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
                           grad_clip=clip, checkpoint_every=every,
                           checkpoint_dir=str(ckdir)),
@@ -206,10 +222,16 @@ def _single(job, steps=None):
     return tr, log
 
 
-def _jax_state_checkpoint(directory):
+def _jax_config(arch):
+    cfg = jax_reduced(arch).replace(compute_dtype="float32")
+    return cfg if cfg.moe is None else \
+        cfg.replace(moe=dataclasses.replace(cfg.moe, **DROPS))
+
+
+def _jax_state_checkpoint(directory, arch="llama3.1-8b"):
     """JAX's initial state of the fp32 reduced config, checkpointed at step
     0 (the start the port and JAX share); returns (model, rules, state)."""
-    cfg = jax_reduced("llama3.1-8b").replace(compute_dtype="float32")
+    cfg = _jax_config(arch)
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
                              ("data", "model"))
     model = jax_build_model(cfg)
@@ -224,7 +246,10 @@ CASES = {   # name: (trainer settings, uneven labels)
     "odd_batch": ({"batch": 3}, False),
     "uneven_ignore": ({}, True),
     "active_clip": ({"clip": 1.0}, False),
+    "moe_drops": ({"arch": MOE}, False),
+    "moe_odd_batch": ({"arch": MOE, "batch": 3}, False),
 }
+ODD = ("odd_batch", "moe_odd_batch")
 CLI = ["--arch", "llama3.1-8b", "--reduced", "--lr", "3e-3", "--device",
        "cpu", "--global-batch", "8", "--seq-len", "64", "--checkpoint-every",
        "15", "--use-case", "gpu-red"]
@@ -239,19 +264,22 @@ def worlds(tmp_path_factory):
     resume = {"name": "resume", "dir": root / "single", "steps": 2}
     _single(dict(resume, cfg={"every": 2}))
     jmodel, jrules, jstate = _jax_state_checkpoint(root / "jax")
+    jmoe = _jax_state_checkpoint(root / "jax_moe", MOE)
     out = {}
     for world in (2, 4):
         jobs = []
         for name, (cfg, uneven) in CASES.items():
             if world == 4 and name == "active_clip":
                 continue
-            if name == "odd_batch":
-                cfg = {"batch": 3 if world == 2 else 6}
+            if name in ODD:
+                cfg = dict(cfg, batch=3 if world == 2 else 6)
             jobs.append({"name": name, "dir": root / f"w{world}-{name}",
                          "steps": 3, "uneven": uneven,
                          "cfg": dict(cfg, every=3 if name == "base" else 0)})
         if world == 2:
             jobs += [resume, {"name": "jax", "dir": root / "jax", "steps": 3},
+                     {"name": "moe_jax", "dir": root / "jax_moe", "steps": 3,
+                      "cfg": {"arch": MOE}},
                      {"name": "cli", "argv": [
                          CLI + ["--steps", "30", "--checkpoint-dir",
                                 str(root / "cli"), "--metrics-out",
@@ -261,6 +289,7 @@ def worlds(tmp_path_factory):
         out[world] = (_spawn(world, jobs, root / f"w{world}.pt"),
                       {j["name"]: j for j in jobs})
     out["jax"] = (jmodel, jrules, jstate)
+    out["moe_jax"] = jmoe
     out["root"] = root
     return out
 
@@ -285,8 +314,13 @@ def test_fsdp_steps_match_single_process(worlds, world, case, tmp_path):
         assert all(m["grad_norm"] > 1.0 for m in want)   # the clip bites
     if case == "uneven_ignore":
         assert want[0]["tokens"] < 8 * 15 * 0.6          # half mostly masked
-    if case == "odd_batch":
+    if case in ODD:
         assert job["cfg"]["batch"] % world                # replicated rows
+    if case.startswith("moe"):                            # tokens dropped
+        cfg, m = _model_config(MOE), _model_config(MOE).moe
+        T = job["cfg"].get("batch", 8) * 16
+        assert capacity(cfg, T) < T * m.top_k / m.n_experts
+        assert all(w["aux_loss"] > 0 for w in want)
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -333,6 +367,37 @@ def test_single_process_checkpoint_resumes_at_world2(worlds, tmp_path):
     got = logs["resume"]
     assert [m["step"] for m in got] == [2, 3]
     _close(got, want[2:], "resumed at world 2")
+
+
+def _jax_steps(model, rules, state, cfg, steps=3):
+    """Each step's loss and gradient norm of JAX's build_train_step on one
+    device, from ``state``, on the synthetic batches."""
+    step_fn, _ = jax_build_train_step(
+        model, JTrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                            grad_clip=1e9), rules, JParallelConfig())
+    data = JSyntheticTokens(JDataConfig(global_batch=8, seq_len=16), cfg)
+    want = []
+    with rules.mesh:
+        for step in range(steps):
+            batch = {k: jax.numpy.asarray(v)
+                     for k, v in data.batch_at(step).items()}
+            state, m = step_fn(state, batch)
+            want.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    return want
+
+
+def test_moe_world2_matches_jax_one_device(worlds):
+    """test_world2_matches_jax_one_device for reduced deepseek-v3-16b with
+    tokens dropped: the port's global dispatch over two ranks against JAX's
+    global-capacity dispatch on one device."""
+    jmodel, jrules, state = worlds["moe_jax"]
+    want = _jax_steps(jmodel, jrules, state, _jax_config(MOE))
+    got = worlds[2][0]["moe_jax"]
+    assert [m["step"] for m in got] == [0, 1, 2]
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("loss", "grad_norm"):
+            assert abs(g[k] - w[k]) <= TOL * max(1.0, abs(w[k])), \
+                f"step {i} {k}: port {g[k]} vs JAX {w[k]}"
 
 
 def test_world2_matches_jax_one_device(worlds):
