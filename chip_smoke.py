@@ -48,12 +48,27 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    (``torch.multiprocessing``, NCCL), as many as the machine has (at most
    8), through ``Trainer`` on the host mesh; phase 5's configuration, then
    phase 5c's (at a world of 1 its first 4 steps), at a world of 8 both at
-   full depth with global batch 8 x S 4096; the launches counted per rank
-   as in phases 5 and 5c, and at a world of 1 the loss of each step held
-   to the unsharded run's (the MoE run's bit for bit); the world size, ms/step,
+   full depth with global batch 8 x S 4096; every rank's gradients checked
+   after each step as phase 5's (a leaf split over the experts over the
+   model group's union of them, the ranks failing together); the launches
+   counted per rank as in phases 5 and 5c, and at a world of 1 the loss of
+   each step held to the unsharded run's (the MoE run's bit for bit); the
+   world size, ms/step (``Trainer.run`` of one step, the check outside it),
    tokens/s, peak memory per card, device-busy share and the device time a
    step spends in the collectives (torch.profiler: the device time under
-   c10d's ``nccl:*`` annotations, and the NCCL kernels');
+   c10d's ``nccl:*`` annotations, and the NCCL kernels'), split into the
+   model group's and the data group's.  It runs through the same 2-D code
+   as 5d, on the (world, 1) mesh: at a world of 1 the (1, 1) mesh, where
+   no ``model`` collective runs, so it still equals phases 5 and 5c;
+5d. tensor, sequence and expert parallelism over the ``model`` axis, at
+   a world of 2 or more (NCCL puts no two ranks of one communicator on one
+   card, so a one-card machine leaves it out): phase 5b's configurations
+   on the (world/2, 2) and (1, world) meshes (llama's heads, ffn and vocab
+   split over ``model``, the residual stream over the sequence;
+   deepseek's experts E/m a rank), the launches per rank equal to phases
+   5 and 5c's and on the same paths, each step's loss within TP_LOSS_TOL
+   of phase 5b's at the same world, finite and falling, and the same
+   figures as 5b;
 6. the device time alone (torch.profiler) of RMSNorm and WKV6, the new
    kernels and the ones kept beside them (L2 flushed), and of the backward
    kernels (flash's wgmma kernels and the simt ones kept beside them,
@@ -194,6 +209,19 @@ TRAIN_TOL = {"loss": 1e-2, "max_rel": 5e-2, "mean_rel": 2e-2}
 # sign-like first steps carry into every later loss
 FSDP_LOSS_TOL = 1e-3
 FSDP_TIMEOUT_S = 600
+# phase 5d (tensor, sequence and expert parallel over "model") against
+# phase 5b at the same world and seed, each step's loss relative.  The row
+# products' partial sums are rounded to bf16 on each rank before the sum
+# over "model", where one device rounds the whole sum once, and the batch's
+# rows and the sequence split otherwise, so values on a rounding boundary
+# move one bf16 step, and AdamW's sign-like first steps carry that into
+# every later loss: on four H100s the largest difference read was 8e-4
+# ((1, 4) llama; 3e-4 at (2, 2)), and the limit is 5 times that.  A split
+# that is wrong by a partial sum can stay inside it: the fp32 gradient
+# comparisons of tests/test_torch_tensor_parallel.py are what catch one
+# (PERF.md section 6)
+TP_LOSS_TOL = 4e-3
+TP_TIMEOUT_S = 420
 # the redesigned kernels' times before their wgmma redesign, by this script
 # on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), at the shapes of phase 2:
 # printed in the log beside this run's times, never in the kernels line
@@ -1396,13 +1424,21 @@ def expected_train_launches(cfg, steps: int) -> dict:
 
 
 class GradientCheck:
-    """Trainer hook: every parameter leaf has a finite, non-zero gradient
-    after each step, and each layer's slice of a stacked leaf too (a
-    detached kernel output would leave the layers below it at zero); the
-    routed experts' leaves (layers, experts, ...) each expert's slice of
-    each layer, where an expert that was routed no token has a zero slice:
-    those are counted (``idle_experts``: the most over the layers' and
-    gradient leaves' counts, each step), not failed."""
+    """Every parameter leaf has a finite, non-zero gradient after each
+    step, and each layer's slice of a stacked leaf too (a detached kernel
+    output would leave the layers below it at zero); the routed experts'
+    leaves (layers, experts, ...) each expert's slice of each layer, where
+    an expert that was routed no token has a zero slice: those are counted
+    (``idle_experts``: the most over the gradient leaves' counts, each
+    step), not failed, but each layer must have a routed expert.  One
+    process calls it as a ``Trainer`` hook; on a mesh every rank calls
+    ``check`` after each step, and a leaf split over ``model`` is held as
+    one device holds it: its maxima are taken over the model group first
+    (a leaf split over the experts gathers its per-expert maxima, so that
+    each layer is held over all its experts; a vocabulary block has no
+    gradient where the batch draws no token of it); each rank checks its
+    own block over ``data``; the ranks' findings are gathered, so that all
+    raise together and none is left waiting in a collective."""
 
     def __init__(self):
         self.step_times = []
@@ -1411,24 +1447,42 @@ class GradientCheck:
     def __call__(self, step, metrics, trainer) -> None:
         torch.cuda.synchronize()
         self.step_times.append(time.perf_counter())
+        self.check(step, trainer)
+
+    def check(self, step, trainer) -> None:
+        from repro_torch.parallel.tensor import all_gather_dim
+        fsdp = trainer.fsdp
+        group = fsdp.model_group if fsdp is not None else None
+        split = [p.mdim >= 0 for _, p in flatten_with_paths(fsdp.placements)
+                 ] if group is not None else None
+        moe = trainer.cfg.model.moe
         bad, idle = [], 0
-        for key, t in flatten_with_paths(trainer.state.params):
+        for i, (key, t) in enumerate(flatten_with_paths(trainer.state.params)):
             g = t.grad
             if g is None:
                 bad.append(f"{key}: no gradient")
-                continue
+                g = torch.zeros_like(t)     # the gathers below stay paired
             expert = "/ffn/w" in key and g.dim() == 4
             per = (g.flatten(2).abs().amax(2) if expert
                    else g.flatten(1).abs().amax(1) if key.startswith("g")
                    else g.abs().amax().reshape(1))
+            if expert and per.shape[1] != moe.n_experts:    # a block of them
+                per = all_gather_dim(per.contiguous(), 1, group)
+            elif split and split[i]:
+                torch.distributed.all_reduce(
+                    per, torch.distributed.ReduceOp.MAX, group)
             if not bool(torch.isfinite(per).all()):
                 bad.append(f"{key}: non-finite")
-            if expert:      # every layer's slice, and count idle experts
+            if expert:      # count idle experts, then every layer's slice
                 idle = max(idle, int((per == 0).sum()))
                 per = per.amax(1)
             if not bool((per > 0).all()):
                 bad.append(f"{key}: zero in slices "
                            f"{(~(per > 0)).nonzero().flatten().tolist()}")
+        if torch.distributed.is_initialized():
+            found = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(found, bad)
+            bad = [f"rank {r}: {b}" for r, bs in enumerate(found) for b in bs]
         self.idle_experts.append(idle)
         if bad:
             raise AssertionError(f"step {step}: " + "; ".join(bad))
@@ -1649,10 +1703,12 @@ def fsdp_setups(world: int) -> list:
     return [dict(TRAIN), moe]
 
 
-def fsdp_worker(rank: int, world: int, port: int, seed: int, card: str,
-                out: str) -> None:
-    """One rank of the FSDP phase (spawned); rank 0 prints and writes the
-    results to ``out``."""
+def mesh_worker(rank: int, world: int, port: int, seed: int, card: str,
+                out: str, model_parallel: list) -> None:
+    """One rank of phase 5b or 5d (spawned): for each size of the ``model``
+    axis, the host mesh of that shape and phase 5's and 5c's
+    configurations through the sharded trainer; rank 0 prints and writes
+    the results to ``out``."""
     global CARD
     CARD = card
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
@@ -1661,24 +1717,50 @@ def fsdp_worker(rank: int, world: int, port: int, seed: int, card: str,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.parallel.mesh import make_host_mesh
-    mesh = make_host_mesh()
     results = {}
     try:
-        for setup in fsdp_setups(world):
-            results[setup["arch"]] = _fsdp_run(rank, world, seed, mesh, setup)
-            torch.cuda.empty_cache()
-    finally:
-        torch.distributed.destroy_process_group()
+        for m in model_parallel:
+            mesh = make_host_mesh(model_parallel=m)
+            for setup in fsdp_setups(world):
+                results[f"{setup['arch']} {world // m}x{m}"] = _fsdp_run(
+                    rank, world, seed, mesh, setup)
+                torch.cuda.empty_cache()
+    except BaseException:
+        # the other ranks may wait in a collective, where tearing the group
+        # down would hang and hide this: report and leave at once
+        import traceback
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    torch.distributed.destroy_process_group()
     if rank == 0:
         Path(out).write_text(json.dumps(results))
 
 
+def collectives_by_group(coll: float, nccl: float, D: int, M: int) -> str:
+    """The device time of a step's collectives split into the model
+    group's and the data group's where the mesh tells them apart: a group
+    of one rank copies instead of launching NCCL kernels, so on a (D, 1)
+    mesh every NCCL kernel is the data group's, on a (1, M) mesh the model
+    group's (the data group's copies are the rest of the ``nccl:*``
+    time).  Where both groups span ranks, their kernels share NCCL's
+    stream and names, and the split is not read."""
+    if M == 1:
+        return f"by group: model 0.00 ms, data {coll:.2f} ms"
+    if D == 1:
+        return (f"by group: model {nccl:.2f} ms (the NCCL kernels), data "
+                f"{coll - nccl:.2f} ms (copies)")
+    return "by group: not split (both groups launch NCCL kernels)"
+
+
 def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
-    """One configuration through the FSDP trainer; rank 0 returns its
-    results (the others None)."""
+    """One configuration through the sharded trainer on ``mesh``; rank 0
+    returns its results (the others None)."""
     from torch.autograd import DeviceType
     cfg = get_config(setup["arch"]).replace(n_layers=setup["layers"])
     B, S, steps = setup["batch"], setup["seq"], setup["steps"]
+    D, M = mesh.size(0), mesh.size(1)
+    what = f"mesh {D}x{M}"
     tc = TrainerConfig(
         model=cfg,
         train=TrainConfig(lr=setup["lr"], warmup_steps=1,
@@ -1690,7 +1772,7 @@ def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
     grads = GradientCheck()
     hooks = [LitSiliconHook(get_config(setup["arch"]), ManagerConfig(
         use_case="gpu-red", sampling_period=2, warmup=3, window_size=2),
-        preset="mi300x"), grads] if rank == 0 else []
+        preset="mi300x")] if rank == 0 else []
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = Trainer(tc, hooks=hooks, device="cuda", mesh=mesh)
@@ -1699,45 +1781,56 @@ def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
     if rank == 0:
         n = sum(int(np.prod(p.shape)) for p in
                 tree_leaves(trainer.fsdp.placements))
-        log(f"fsdp: world {world} (NCCL, one process per card), "
-            f"{cfg.name} {cfg.n_layers} layers, {n / 1e9:.3f} B fp32 params "
-            f"sharded with both moments, made in "
+        log(f"{what}: world {world} (NCCL, one process per card; ZeRO-3 "
+            f"over data {D}, tensor/sequence/expert parallel over model "
+            f"{M}), {cfg.name} {cfg.n_layers} layers, {n / 1e9:.3f} B fp32 "
+            f"params sharded with both moments, made in "
             f"{time.perf_counter() - t0:.1f} s; global batch {B} x S {S}, "
-            f"{B // world if B % world == 0 else B} rows a rank")
+            f"{B // D if B % D == 0 else B} rows a data rank, "
+            f"{S // M if M > 1 else S} of the residual stream's positions "
+            f"a model rank")
     for k in KERNELS:
         _build.reset_counts(k)
     torch.distributed.barrier()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    metrics = trainer.run(steps)                    # the main path
-    torch.cuda.synchronize()
+    dts = []
+    for _ in range(steps):          # the main path, checked after each step
+        t1 = time.perf_counter()
+        metrics = trainer.run(1)    # the log of every step so far
+        torch.cuda.synchronize()
+        dts.append((time.perf_counter() - t1) * 1e3)
+        grads.check(trainer.step - 1, trainer)
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in KERNELS}
     by_path = {k.__name__: dict(k.launches_by_path) for k in KERNELS}
     for name, want in expected_train_launches(cfg, steps).items():
         if launches[name] != want:
-            raise AssertionError(f"fsdp rank {rank}: {name} {launches[name]}"
-                                 f" launches, expected {want}")
+            raise AssertionError(f"{what} rank {rank}: {name} "
+                                 f"{launches[name]} launches, expected "
+                                 f"{want}")
     for name, paths in by_path.items():
         if paths[SERVED_PATH[name]] != launches[name]:
-            raise AssertionError(f"fsdp rank {rank}: {name}: {paths}")
+            raise AssertionError(f"{what} rank {rank}: {name}: {paths}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     ranks = [None] * world
     torch.distributed.all_gather_object(ranks, (launches, by_path, peak))
     if rank == 0:
-        dts = np.diff([t0] + grads.step_times) * 1e3
         step_ms = float(np.median(dts[1:]))
         losses = [m["loss"] for m in metrics]
-        log(f"fsdp {cfg.name}: {steps} steps in {wall:.2f} s; losses "
+        log(f"{what} {cfg.name}: {steps} steps in {wall:.2f} s; losses "
             f"{['%.4f' % x for x in losses]}; grad norms "
             f"{['%.3f' % m['grad_norm'] for m in metrics]}")
-        log(f"fsdp world {world} {cfg.name}: {step_ms:.1f} ms/step (median "
+        if cfg.moe:
+            log(f"{what} {cfg.name}: experts routed no token (of "
+                f"{cfg.moe.n_experts} a layer, over the model group), by "
+                f"step: {grads.idle_experts}")
+        log(f"{what} {cfg.name}: {step_ms:.1f} ms/step (median "
             f"of steps 2-{steps}; all {['%.1f' % x for x in dts]}) = "
             f"{B * S * 1e3 / step_ms:.0f} tokens/s; peak memory per card "
             f"{['%.2f' % r[2] for r in ranks]} GB; launches per rank "
             f"{launches}; {CARD}")
-    prof, busy = (device_profile(f"fsdp world {world} {cfg.name} step",
-                                 step_ms,
+    prof, busy = (device_profile(f"{what} {cfg.name} step", step_ms,
                                  lambda: trainer.run(1), top=10)
                   if rank == 0 else (None, 0.0))
     if rank != 0:
@@ -1752,11 +1845,12 @@ def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation and "nccl" in e.key.lower())
     coll = sum(ranges.values())
-    log(f"fsdp world {world} {cfg.name} collectives in a step (rank 0): "
+    log(f"{what} {cfg.name} collectives in a step (rank 0): "
         f"{coll:.2f} ms of device time "
         f"{ {k: round(v, 3) for k, v in ranges.items()} } (NCCL kernels "
-        f"{nccl:.2f} ms); busy {busy:.2f} of {step_ms:.2f} ms "
-        f"({100 * busy / step_ms:.1f}%); {CARD}")
+        f"{nccl:.2f} ms); {collectives_by_group(coll, nccl, D, M)}; busy "
+        f"{busy:.2f} of {step_ms:.2f} ms ({100 * busy / step_ms:.1f}%); "
+        f"{CARD}")
     return {
         "losses": losses, "step_ms": step_ms, "peak_gb": [r[2] for r in ranks],
         "busy_ms": busy, "collective_ms": coll, "nccl_ms": nccl,
@@ -1765,38 +1859,50 @@ def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
                     for k, v in by_path.items()}}
 
 
-def fsdp_train(args, unsharded: dict) -> dict:
-    """Phase 5b: the FSDP trainer over every card (at most 8), one spawned
-    process each, on phase 5's and phase 5c's configurations; at a world of
-    1 each run's losses held to the unsharded run's (``unsharded``: arch ->
-    losses).  Returns {run: (launch counts, counts by path)} summed over the
-    ranks."""
+def spawn_meshes(args, world: int, model_parallel: list, timeout: float,
+                 name: str) -> dict:
+    """``mesh_worker`` over ``world`` spawned ranks (NCCL), with a deadline;
+    returns rank 0's results."""
+    import shutil
     import torch.multiprocessing as mp
-    world = min(torch.cuda.device_count(), 8)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    import shutil
     build = Path(__file__).resolve().parent / "build"
     shutil.rmtree(build / "chip_smoke_fsdp", ignore_errors=True)
-    out = build / "chip_smoke_fsdp.json"
+    out = build / f"chip_smoke_{name}.json"
     out.unlink(missing_ok=True)
     torch.cuda.empty_cache()
-    ctx = mp.start_processes(fsdp_worker, args=(world, port, args.seed, CARD,
-                                                str(out)),
+    ctx = mp.start_processes(mesh_worker, args=(world, port, args.seed, CARD,
+                                                str(out), model_parallel),
                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + FSDP_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     try:
         while not ctx.join(timeout=5):
             if time.monotonic() > deadline:
-                raise AssertionError(f"fsdp: world {world} did not finish in "
-                                     f"{FSDP_TIMEOUT_S} s")
+                raise AssertionError(f"{name}: world {world} did not finish "
+                                     f"in {timeout} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.terminate()
-    runs = {}
-    for arch, res in json.loads(out.read_text()).items():
+    return json.loads(out.read_text())
+
+
+def fsdp_train(args, unsharded: dict) -> tuple:
+    """Phase 5b: the FSDP trainer over every card (at most 8), one spawned
+    process each, on the (world, 1) mesh, through the same 2-D code as
+    phase 5d (at a world of 1 the (1, 1) mesh: no ``model`` collective
+    runs); phase 5's and phase 5c's configurations; at a world of 1 each
+    run's losses held to the unsharded run's (``unsharded``: arch ->
+    losses): llama's within FSDP_LOSS_TOL, the MoE run's bit for bit.
+    Returns ({run: (launch counts, counts by path)} summed over the ranks,
+    {arch: losses})."""
+    world = min(torch.cuda.device_count(), 8)
+    runs, losses = {}, {}
+    for key, res in spawn_meshes(args, world, [1], FSDP_TIMEOUT_S,
+                                 "fsdp").items():
+        arch = key.split()[0]
         if world == 1:
             # llama: within FSDP_LOSS_TOL; the MoE run bit for bit
             want = unsharded[arch][:len(res["losses"])]
@@ -1814,6 +1920,45 @@ def fsdp_train(args, unsharded: dict) -> dict:
             raise AssertionError(f"fsdp {arch}: losses {res['losses']} not "
                                  f"finite and falling")
         runs[f"{arch} fsdp"] = (res["launches"], res["by_path"])
+        losses[arch] = res["losses"]
+    return runs, losses
+
+
+def tp_meshes(world: int) -> list:
+    """Phase 5d's sizes of the ``model`` axis: (world/2, 2) and (1, world)."""
+    return sorted({2, world}) if world >= 2 else []
+
+
+def tp_train(args, fsdp_losses: dict) -> dict:
+    """Phase 5d: tensor, sequence and expert parallelism over the ``model``
+    axis, on the (world/2, 2) and (1, world) meshes over every card, phase
+    5b's configurations; each step's loss held to phase 5b's at the same
+    world (``fsdp_losses``) within TP_LOSS_TOL.  A world of 1 has no
+    ``model`` axis above 1 (NCCL puts no two ranks of one communicator on
+    one card): the phase is left out there.  Returns {run: (launch counts,
+    counts by path)} summed over the ranks."""
+    world = min(torch.cuda.device_count(), 8)
+    if world < 2:
+        log(f"phase 5d: {world} card; a model axis above 1 needs two or "
+            f"more, so the phase is left out on this machine")
+        return {}
+    runs = {}
+    for key, res in spawn_meshes(args, world, tp_meshes(world), TP_TIMEOUT_S,
+                                 "tp").items():
+        arch = key.split()[0]
+        want = fsdp_losses[arch]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], want))
+        log(f"{key} against phase 5b's world {world} run (same seed): "
+            f"losses {res['losses']} vs {want}, largest difference "
+            f"{diff:.3e} of the loss (tol {TP_LOSS_TOL})")
+        if len(res["losses"]) != len(want) or diff > TP_LOSS_TOL:
+            raise AssertionError(f"tp {key}: losses off phase 5b's")
+        if not all(np.isfinite(res["losses"])) \
+                or not res["losses"][-1] < res["losses"][0]:
+            raise AssertionError(f"tp {key}: losses {res['losses']} not "
+                                 f"finite and falling")
+        runs[f"{arch} tp {key.split()[1]}"] = (res["launches"],
+                                               res["by_path"])
     return runs
 
 
@@ -1955,7 +2100,9 @@ def main(argv=None) -> int:
         launches, by_path, losses[setup["arch"]] = train(args, setup)
         by_run[f"{setup['arch']} train"] = (launches, by_path)
         train_kernel_vs_plain(args, setup["arch"])
-    by_run.update(fsdp_train(args, losses))
+    runs, fsdp_losses = fsdp_train(args, losses)
+    by_run.update(runs)
+    by_run.update(tp_train(args, fsdp_losses))                # phase 5d
     by_name = {row["name"]: row for row in rows}
     device_times(g, by_name)
     backward_device_times(g, by_name)

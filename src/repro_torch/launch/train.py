@@ -9,8 +9,9 @@
   python -m repro_torch.launch.train --arch deepseek-v3-16b --reduced \\
       --steps 30 --lr 3e-3 --device cpu
 
-and sharded (FSDP, ZeRO-3 over the ``data`` axis), one process per card,
-or per CPU process with gloo:
+and sharded (FSDP, ZeRO-3 over the ``data`` axis; with ``--model-parallel
+N`` tensor, sequence and expert parallel over a ``model`` axis of N), one
+process per card, or per CPU process with gloo:
 
   torchrun --nproc_per_node 8 -m repro_torch.launch.train \\
       --arch llama3.1-8b --global-batch 8 --seq-len 4096 --steps 10
@@ -20,18 +21,27 @@ or per CPU process with gloo:
   python -m torch.distributed.run --nproc_per_node 2 \\
       -m repro_torch.launch.train --arch llama3.1-8b --reduced --steps 30 \\
       --lr 3e-3 --device cpu
+  torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
+      --arch llama3.1-8b --global-batch 4 --seq-len 4096 --steps 8 \\
+      --checkpoint-every 0 --model-parallel 4
+  python -m torch.distributed.run --nproc_per_node 4 \\
+      -m repro_torch.launch.train --arch deepseek-v3-16b --reduced \\
+      --steps 30 --lr 3e-3 --device cpu --model-parallel 2
 
-The flags of ``python -m repro.launch.train``, plus ``--device`` and
-``--layers`` (a depth cut at full width: full-depth llama3.1-8b's fp32
-parameters, gradients and AdamW moments, ~128 GB, do not fit one card, but
-do fit a node's cards sharded; an MoE model keeps its dense first layers
-and cuts the MoE ones).  Under torchrun (``WORLD_SIZE`` above 1 in
-the environment) it builds the host mesh and trains sharded; only rank 0
-prints and writes ``--metrics-out``.  Runs synthetic data -> loss
-(per-layer activation checkpoints) -> backward -> AdamW -> atomic
-checkpoints -> watchdog -> the Lit Silicon power-management co-sim hook
-(detect + mitigate per paper §V).  Weights are random, made on the device
-from the training seed.
+The flags of ``python -m repro.launch.train``, plus ``--device``,
+``--model-parallel`` and ``--layers`` (a depth cut at full width:
+full-depth llama3.1-8b's fp32 parameters, gradients and AdamW moments,
+~128 GB, do not fit one card, but do fit a node's cards sharded; an MoE
+model keeps its dense first layers and cuts the MoE ones).  Under torchrun
+(``WORLD_SIZE`` above 1 in the environment) it builds the host mesh of
+shape (world / N, N) for ``--model-parallel N``
+(``make_host_mesh(model_parallel=N)``) and trains sharded; only rank 0
+prints (the mesh's shape first) and writes ``--metrics-out``.
+``--model-parallel`` above 1 without torchrun raises.  Runs synthetic
+data -> loss (per-layer activation checkpoints) -> backward -> AdamW ->
+atomic checkpoints -> watchdog -> the Lit Silicon power-management co-sim
+hook (detect + mitigate per paper §V).  Weights are random, made on the
+device from the training seed.
 """
 from __future__ import annotations
 
@@ -64,6 +74,8 @@ def main(argv=None):
     ap.add_argument("--preset", default="mi300x", choices=["mi300x", "v5e"])
     ap.add_argument("--metrics-out", default="")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="size of the mesh's 'model' axis (torchrun only)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import TrainConfig, get_config, get_reduced_config
@@ -76,8 +88,16 @@ def main(argv=None):
     mesh = None
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         from repro_torch.parallel.mesh import make_host_mesh
-        mesh = make_host_mesh(device=device.type)
+        mesh = make_host_mesh(model_parallel=args.model_parallel,
+                              device=device.type)
+    elif args.model_parallel != 1:
+        raise RuntimeError(f"--model-parallel {args.model_parallel} needs "
+                           f"that many processes or more: start them with "
+                           f"torchrun (WORLD_SIZE above 1)")
     rank0 = mesh is None or mesh.get_rank() == 0
+    if mesh is not None and rank0:
+        print(f"mesh (data, model) = {tuple(mesh.mesh.shape)} over "
+              f"{mesh.size()} {device.type} processes", flush=True)
     model_cfg = (get_reduced_config(args.arch) if args.reduced
                  else get_config(args.arch))
     if args.layers:

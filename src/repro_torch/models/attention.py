@@ -41,14 +41,15 @@ def attn_specs(cfg) -> Dict[str, ParamSpec]:
 
 
 # --------------------------------------------------------------------------- #
-# Projections
+# Projections (the head counts are read from the weights: a rank's columns
+# of wq, wk and wv under tensor parallelism hold its local heads)
 # --------------------------------------------------------------------------- #
 def project_q(cfg, p, x, positions=None):
     B, S, _ = x.shape
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = q.reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
     if positions is not None and cfg.pos_embedding == "rope":
@@ -64,8 +65,8 @@ def project_kv(cfg, p, x, positions=None):
     if "bk" in p:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    k = k.reshape(B, S, -1, cfg.head_dim)
+    v = v.reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     if positions is not None and cfg.pos_embedding == "rope":
@@ -128,13 +129,39 @@ def sdpa_auto(q, k, v, *, causal, window_eff=0, q_offset=0, mask=None):
     return sdpa(q, k, v, m)
 
 
-def attention(cfg, p, x, positions, *, causal=True, window_eff=0):
-    """Self-attention for prefill (and the forward pass).  Returns (B,S,d)."""
+def local_kv_heads(cfg, n_local: int, rank: int):
+    """The kv head of each of a rank's ``n_local`` query heads, where the
+    heads are split over ``model`` and the kv heads are not (JAX keeps wk
+    and wv whole then): local head j of rank r is global head
+    ``r * n_local + j``, which reads kv head ``(r * n_local + j) // (H /
+    KV)``."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    return [(rank * n_local + j) // group for j in range(n_local)]
+
+
+def _select_heads(t, index):
+    """(B, S, KV, D) -> the kv heads ``index`` names, as a GQA layout when
+    they are consecutive heads each read by an equal run of query heads,
+    else one per query head."""
+    lo, hi = index[0], index[-1] + 1
+    run = len(index) // (hi - lo)
+    if index == [lo + j // run for j in range(len(index))]:
+        return t[:, :, lo:hi].contiguous()
+    return t.index_select(2, torch.tensor(index, device=t.device))
+
+
+def attention(cfg, p, x, positions, *, causal=True, window_eff=0,
+              kv_index=None):
+    """Self-attention for prefill (and the forward pass).  Returns (B,S,d).
+    ``kv_index``: the kv head each query head reads (``local_kv_heads``),
+    where wq holds a rank's heads and wk, wv hold every kv head."""
     q = project_q(cfg, p, x, positions)
     k, v = project_kv(cfg, p, x, positions)
+    if kv_index is not None:
+        k, v = _select_heads(k, kv_index), _select_heads(v, kv_index)
     out = sdpa_auto(q, k, v, causal=causal, window_eff=window_eff)
     B, S = x.shape[:2]
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(x.dtype)
+    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #

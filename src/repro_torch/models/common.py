@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.parallel.tensor import vocab_embedding
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -211,20 +212,36 @@ def apply_rope(x, cos, sin):
 # Loss
 # --------------------------------------------------------------------------- #
 def cross_entropy_loss(logits, labels, z_loss_weight: float = 0.0,
-                       ignore_index: int = -100, count=None):
+                       ignore_index: int = -100, count=None, tp=None):
     """Mean CE over non-ignored tokens, with an optional z-loss regularizer
     (the weight times the mean squared log-partition).
 
     logits: (..., V) any float dtype, taken in fp32; labels: (...) ints.
     The mean's denominator is the count of non-ignored tokens, at least 1,
     or ``count(that count)`` where given (the global batch's count, when
-    these labels are one rank's rows of it).
+    these labels are one rank's rows of it).  ``tp``
+    (``parallel.tensor.TensorParallel``): the logits are this rank's
+    contiguous block of the vocabulary, and the CE is vocab-parallel (the
+    largest logit and the sum of exponentials summed over ``model`` for
+    the log-partition, the target's logit taken from the rank that holds
+    it), the same on every model rank.
     """
     logits = logits.float()
     mask = labels != ignore_index
     safe = torch.where(mask, labels, 0).long()
-    lse = torch.logsumexp(logits, -1)
-    ll = torch.take_along_dim(logits, safe[..., None], -1)[..., 0]
+    if tp is None:
+        lse = torch.logsumexp(logits, -1)
+        ll = torch.take_along_dim(logits, safe[..., None], -1)[..., 0]
+    else:
+        top = tp.max(logits.amax(-1))
+        lse = torch.log(tp.sum(torch.exp(logits - top[..., None]).sum(-1))) \
+            + top
+        n_local = logits.shape[-1]
+        local = safe - tp.rank * n_local
+        inside = (local >= 0) & (local < n_local)
+        ll = torch.take_along_dim(
+            logits, torch.where(inside, local, 0)[..., None], -1)[..., 0]
+        ll = tp.sum(torch.where(inside, ll, 0.0))
     ce = (lse - ll) * mask
     n = mask.sum()
     denom = n.clamp_min(1) if count is None else count(n)
@@ -245,5 +262,10 @@ def pad_vocab(v: int, multiple: int = 128) -> int:
     return -(-v // multiple) * multiple
 
 
-def take_embedding(table, tokens):
-    return table[tokens]
+def take_embedding(table, tokens, tp=None):
+    """Rows of ``table`` for ``tokens``; under ``tp`` this rank's part of
+    the vocab-parallel lookup (``parallel.tensor.vocab_embedding``), which
+    the caller sums over ``model``."""
+    if tp is None:
+        return table[tokens]
+    return vocab_embedding(table, tokens, tp)

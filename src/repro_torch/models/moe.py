@@ -27,6 +27,12 @@ A rank's buffer holds its kept assignments only (the largest count over
 experts, rounded up to 8), which asks the host for that count.  Where every
 rank holds the whole batch (rows the world does not divide), each routes it
 as one device would and carries 1/world of the aux.
+
+Expert parallelism over the ``model`` axis (``moe_forward``'s ``tp``, JAX's
+``experts`` -> ``model`` rule) needs no all-to-all: every model rank of a
+data row routes the same gathered tokens, fills and runs only its E/m
+experts' slots, and the sum over ``model`` of the ranks' combines is the
+layer's output.
 """
 from __future__ import annotations
 
@@ -137,20 +143,26 @@ class _Gather(torch.autograd.Function):
                 None, None, None)
 
 
-def _dispatch_combine_local(cfg, p, xs, gates, idx, offset=None, C=None):
+def _dispatch_combine_local(cfg, p, xs, gates, idx, offset=None, C=None,
+                            e0: int = 0):
     """Dispatch -> padded expert GEMMs -> combine.
 
     xs: (T, d); gates/idx: (T, k).  Slot ``se * C + pos`` holds the pos-th
     assignment (in token order) to expert se; assignments past the capacity
-    C go to the trash slot E * C and contribute zero.  ``offset`` (E,) and
-    ``C`` (sharded training): the assignments of the ranks before this one
-    to each expert, and the global capacity; an assignment is kept where
-    its global position ``offset + pos`` is below C, and the buffer holds
-    this rank's kept assignments only.
+    C go to the trash slot and contribute zero.  ``offset`` (E,) and ``C``
+    (sharded training): the assignments of the ranks before this one to
+    each expert, and the global capacity; an assignment is kept where its
+    global position ``offset + pos`` is below C, and the buffer holds this
+    rank's kept assignments only.  ``p``'s expert weights may hold a
+    contiguous block of the experts, from expert ``e0`` on (expert
+    parallelism: E/m experts a rank); then the buffer holds those experts'
+    slots alone, assignments to the others go to the trash slot too, and
+    the result is this rank's part of the sum over experts.
     """
     m = cfg.moe
     T, d = xs.shape
     E, k = m.n_experts, m.top_k
+    El = p["wg"].shape[0]
     dev = xs.device
 
     flat_e = idx.reshape(T * k)
@@ -166,20 +178,22 @@ def _dispatch_combine_local(cfg, p, xs, gates, idx, offset=None, C=None):
         keep = pos < C
     else:
         keep = offset[se] + pos < C
-        kept = (C - offset).clamp_min(0).minimum(counts)
+        kept = (C - offset).clamp_min(0).minimum(counts)[e0:e0 + El]
         C = max(8, -(-int(kept.max()) // 8) * 8)       # a read by the host
-    dest = torch.where(keep, se * C + pos, E * C)          # E*C = trash slot
+    if El != E:                                        # this rank's experts
+        keep &= (se >= e0) & (se < e0 + El)
+    dest = torch.where(keep, (se - e0) * C + pos, El * C)  # El*C = trash slot
     dest_tok = torch.empty_like(dest)
     dest_tok[order] = dest                                  # (t, j) order
 
     # slot -> source row of xs (empty slots read the zero row T), and slot
     # -> its assignment t * k + j (empty slots: T * k).  Only the trash slot
     # is written more than once, and it is never read.
-    src = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
+    src = torch.full((El * C + 1,), T, dtype=torch.int64, device=dev)
     src[dest] = flat_t[order]
-    slot_of = torch.full((E * C + 1,), T * k, dtype=torch.int64, device=dev)
+    slot_of = torch.full((El * C + 1,), T * k, dtype=torch.int64, device=dev)
     slot_of[dest] = order
-    eb = _Gather.apply(xs, src[:E * C], dest_tok, k).view(E, C, d)
+    eb = _Gather.apply(xs, src[:El * C], dest_tok, k).view(El, C, d)
 
     # ---- grouped expert GEMMs (padded — balanced compute, paper §VII-C) ----
     act = activation_fn(cfg.activation)
@@ -189,23 +203,39 @@ def _dispatch_combine_local(cfg, p, xs, gates, idx, offset=None, C=None):
     y = moe_ops.moe_gemm(h, p["wd"].to(dt))
 
     # ---- combine: gather back in token order, gate-weight, sum over k ------
-    back = _Gather.apply(y.reshape(E * C, d), dest_tok, slot_of[:E * C], 1)
+    back = _Gather.apply(y.reshape(El * C, d), dest_tok, slot_of[:El * C], 1)
     return (back * gates.reshape(T * k, 1).to(dt)).view(T, k, d).sum(1)
 
 
-def moe_forward(cfg, p, x, group: Optional[MoEGroup] = None
+def moe_forward(cfg, p, x, group: Optional[MoEGroup] = None, tp=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar).  Capacity follows
     the call's own token count B * S, or under a split ``group`` the global
-    batch's, with this rank's part of the global aux."""
+    batch's, with this rank's part of the global aux.
+
+    ``tp`` (``parallel.tensor.TensorParallel``, expert parallelism): ``p``
+    holds this rank's E/m experts, its router columns and its columns
+    (rows) of the shared experts; ``x`` is this rank's part of the
+    residual stream.  The tokens are gathered (``tp.enter``) so that every
+    model rank of a data row routes the same tokens, over the router's
+    logits gathered over the experts; each rank runs its experts' slots
+    of the dispatch, its combine and its shared experts' partial sum add
+    up, and one sum over ``model`` (``tp.leave``) makes the output; each
+    model rank carries 1/m of the aux."""
+    e0 = 0
+    if tp is not None:
+        x = tp.enter(x)
+        e0 = tp.rank * p["wg"].shape[0]
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     logits = xf.float() @ p["router"].float()
+    if tp is not None:
+        logits = tp.gather_last(logits)
     gates, idx, aux = _route(cfg, logits)
     if group is None or not group.split:
         if group is not None:       # every rank routes the whole batch
             aux = aux / group.world
-        out = _dispatch_combine_local(cfg, p, xf, gates, idx)
+        out = _dispatch_combine_local(cfg, p, xf, gates, idx, e0=e0)
     else:
         m = cfg.moe
         counts = torch.zeros(m.n_experts, dtype=torch.int64, device=x.device)
@@ -218,10 +248,13 @@ def moe_forward(cfg, p, x, group: Optional[MoEGroup] = None
                    probs.sum(0) / T)
         out = _dispatch_combine_local(cfg, p, xf, gates, idx,
                                       offset=every[:group.rank].sum(0),
-                                      C=capacity(cfg, T))
+                                      C=capacity(cfg, T), e0=e0)
     if cfg.moe.n_shared:
         out = out + mlp(cfg, p["shared"], xf)
-    return out.reshape(B, S, d), aux
+    out = out.reshape(B, S, d)
+    if tp is not None:
+        return tp.leave(out), aux / tp.size
+    return out, aux
 
 
 def moe_or_mlp_specs(cfg, layer_is_dense: bool):

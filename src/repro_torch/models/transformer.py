@@ -114,68 +114,107 @@ class DecoderOnlyLM:
                                      dtype=torch.float32, device=device))
 
     # ----------------------------------------------------------------- block
-    def _ffn(self, i: int, lp, x, moe_group=None):
+    def _ffn(self, i: int, lp, x, moe_group=None, tp=None):
         """Residual + the FFN of layer i (dense MLP or MoE), and the MoE
         aux loss (None for a dense layer).  The MoE block's capacity follows
         the call's token count, or the global batch's under a split
-        ``moe_group`` (``models.moe.MoEGroup``, sharded training)."""
+        ``moe_group`` (``models.moe.MoEGroup``, sharded training); ``tp``
+        (``parallel.tensor.TensorParallel``): ``x`` is this rank's part of
+        the residual stream and ``lp`` holds its ffn columns / experts."""
         cfg = self.cfg
         h = apply_norm(cfg, lp["ln2"], x)
         if self.dense_layers[i]:
-            return x + mlp(cfg, lp["ffn"], h), None
-        out, aux = moe_forward(cfg, lp["ffn"], h, moe_group)
+            if tp is None:
+                return x + mlp(cfg, lp["ffn"], h), None
+            return x + tp.leave(mlp(cfg, lp["ffn"], tp.enter(h))), None
+        out, aux = moe_forward(cfg, lp["ffn"], h, moe_group, tp)
         return x + out, aux
 
-    def _embed(self, params, tokens):
-        return take_embedding(params["embed"], tokens).to(self.dtype)
+    def _attention(self, p, h, positions, tp=None):
+        """Self-attention of one layer.  Under ``tp`` its heads split over
+        ``model`` (the local heads read from wq and wk; wk and wv whole
+        where the kv heads do not divide) and the output summed over it, or
+        where the heads do not divide, run whole on every model rank."""
+        cfg = self.cfg
+        kw = dict(causal=True, window_eff=cfg.window)
+        if tp is None:
+            return attn.attention(cfg, p, h, positions, **kw)
+        n_local = p["wq"].shape[1] // cfg.head_dim
+        if n_local == cfg.n_heads:                   # heads whole
+            return tp.leave_whole(attn.attention(
+                cfg, p, tp.enter_whole(h), positions, **kw))
+        kv_index = (attn.local_kv_heads(cfg, n_local, tp.rank)
+                    if p["wk"].shape[1] == cfg.kv_dim else None)
+        return tp.leave(attn.attention(cfg, p, tp.enter(h), positions,
+                                       kv_index=kv_index, **kw))
 
-    def _logits(self, params, x):
+    def _embed(self, params, tokens, tp=None):
+        """The embedding of ``tokens``; under ``tp`` the vocab-parallel
+        lookup, summed over ``model`` onto this rank's part of the residual
+        stream."""
+        if tp is None:
+            return take_embedding(params["embed"], tokens).to(self.dtype)
+        return tp.leave(take_embedding(params["embed"], tokens, tp)
+                        .to(self.dtype))
+
+    def _logits(self, params, x, tp=None):
+        """The final norm and the lm_head; under ``tp`` the norm on this
+        rank's part of the residual stream, then the whole sequence through
+        this rank's block of the vocabulary (its logits alone)."""
         cfg = self.cfg
         x = apply_norm(cfg, params["final_norm"], x)
+        if tp is not None:
+            x = tp.enter(x)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         logits = softcap(x @ head.to(x.dtype), cfg.logit_softcap)
         if self.vp != cfg.vocab_size:                 # mask padded vocab rows
-            pad = torch.arange(self.vp, device=x.device) >= cfg.vocab_size
+            n = logits.shape[-1]
+            first = 0 if tp is None else tp.rank * n
+            pad = torch.arange(first, first + n, device=x.device) \
+                >= cfg.vocab_size
             logits = logits.masked_fill(pad, -1e30)
         return logits
 
-    def _layer(self, i: int, lp, x, positions, gather=None, moe_group=None):
+    def _layer(self, i: int, lp, x, positions, gather=None, moe_group=None,
+               tp=None):
         """Layer i of the forward pass: (x, the MoE aux loss or None).
         ``gather``: the layer's leaves are shards, gathered here (inside
         the activation checkpoint, so the recompute gathers them again)."""
         if gather is not None:
             lp = gather(lp)
         h = apply_norm(self.cfg, lp["ln1"], x)
-        return self._ffn(i, lp, x + attn.attention(
-            self.cfg, lp["attn"], h, positions, causal=True,
-            window_eff=self.cfg.window), moe_group)
+        return self._ffn(i, lp, x + self._attention(lp["attn"], h, positions,
+                                                    tp), moe_group, tp)
 
     # --------------------------------------------------------------- forward
     def forward(self, params, batch, *, remat: bool = False, gather=None,
-                moe_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                moe_group=None, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced logits (B, S, V) and the summed MoE aux loss.
         ``remat``: each layer under one activation checkpoint.  ``gather``
         (sharded training): ``params`` holds shards, and each part is
         gathered around its use, the layers' inside their checkpoints;
-        ``moe_group``: the ranks the MoE layers route over."""
+        ``moe_group``: the ranks the MoE layers route over; ``tp``
+        (``parallel.tensor.TensorParallel``): ``params`` hold this rank's
+        part over ``model``, the residual stream runs on its part and the
+        logits are its block of the vocabulary."""
         def whole(tree):
             return tree if gather is None else gather(tree)
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-        x = self._embed(whole({"embed": params["embed"]}), tokens)
+        x = self._embed(whole({"embed": params["embed"]}), tokens, tp)
         aux = torch.zeros((), device=x.device)
         for i, lp in enumerate(params["layers"]):
             if remat:
                 x, a = checkpoint(self._layer, i, lp, x, positions, gather,
-                                  moe_group, use_reentrant=False)
+                                  moe_group, tp, use_reentrant=False)
             else:
-                x, a = self._layer(i, lp, x, positions, gather, moe_group)
+                x, a = self._layer(i, lp, x, positions, gather, moe_group, tp)
             if a is not None:
                 aux = aux + a
         head = "embed" if self.cfg.tie_embeddings else "lm_head"
         return self._logits(whole({"final_norm": params["final_norm"],
-                                   head: params[head]}), x), aux
+                                   head: params[head]}), x, tp), aux
 
     def loss(self, params, batch, fsdp=None):
         """(loss + MoE aux, metrics) for params in the JAX layout (stacked
@@ -185,19 +224,22 @@ class DecoderOnlyLM:
         JAX model's ``loss``.  ``fsdp`` (``repro_torch.parallel.fsdp.FSDP``):
         params are this rank's shards and batch its rows of the global
         batch; the parts are gathered around their use, the CE and z-loss
-        sums divided by the global token count, and the MoE layers route
-        over ``fsdp.moe_group``."""
+        sums divided by the global token count, the MoE layers route over
+        ``fsdp.moe_group``, and over ``fsdp.tp`` the layers run tensor,
+        sequence and expert parallel and the CE is vocab-parallel."""
+        tp = None
         if fsdp is None:
             logits, aux = self.forward(self.split_layers(params), batch,
                                        remat=True)
         else:
+            tp = fsdp.tp
             logits, aux = self.forward(fsdp.split(params), batch, remat=True,
                                        gather=fsdp.gather,
-                                       moe_group=fsdp.moe_group)
+                                       moe_group=fsdp.moe_group, tp=tp)
         loss, metrics = cross_entropy_loss(
             logits, batch["labels"],
             z_loss_weight=getattr(self, "z_loss_weight", 1e-4),
-            count=None if fsdp is None else fsdp.token_count)
+            count=None if fsdp is None else fsdp.token_count, tp=tp)
         metrics["aux_loss"] = aux
         return loss + aux, metrics
 

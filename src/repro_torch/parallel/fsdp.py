@@ -1,35 +1,49 @@
-"""ZeRO-3 over the mesh's ``data`` axis: the sharded train state and the
+"""ZeRO-3 over the mesh's ``data`` axis, with tensor, sequence and expert
+parallelism over its ``model`` axis: the sharded train state and the
 collectives of a step.
 
 The torch counterpart of ``repro.parallel.fsdp`` (``state_shardings``,
 ``build_train_step``, ``init_train_state``).  Each rank holds its shard of
-every fp32 parameter and of both AdamW moments, split along the dimension
-``ShardingRules.spec_for`` gives the ``data`` axis (the ``embed`` axis); a
-leaf whose dimension the axis does not divide, and every leaf with no
-``embed`` axis (the norm weights), is held whole on every rank.  In a step:
+every fp32 parameter and of both AdamW moments: the leaf's block along the
+dimension ``ShardingRules`` splits over ``model`` (heads, kv heads, ffn,
+vocab or experts; ``Placement.mdim``), and of that the block along the one
+it splits over ``data`` (the ``embed`` axis; ``Placement.dim``).  A leaf
+whose dimension an axis does not divide, or that has none the axis takes,
+is whole over that axis (the norm weights over both).  In a step:
 
-  * every rank draws the same global batch and keeps its rows
-    (``act.local_rows``), or all of them when they do not divide;
+  * every rank draws the same global batch and keeps its data row's rows
+    (``act.local_rows``), or all of them when they do not divide; every
+    model rank of a data row holds the same rows;
   * inside each layer's activation checkpoint the layer's leaves are
-    all-gathered, cast to the compute dtype by the model and used, then
-    freed; the recompute in the backward gathers them again;
-  * the gather's backward reduce-scatters the gradient onto the shards
-    (summing the ranks' contributions); the gradients of whole leaves are
-    all-reduced after the backward;
+    all-gathered over ``data``, cast to the compute dtype by the model and
+    used, then freed; the recompute in the backward gathers them again;
+    the gather's backward reduce-scatters the gradient onto the shards;
+  * over ``model`` the layers run on their local heads, ffn and experts
+    (``repro_torch.parallel.tensor``, ``TensorParallel``), the residual
+    stream on this rank's sequence rows under sequence parallelism;
+  * the gradients of leaves whole over ``data`` are all-reduced over it
+    after the backward; those of leaves whole over ``model`` are
+    all-reduced over ``model`` where each model rank's is a partial sum:
+    all of them under sequence parallelism (each saw other rows), and
+    without it those inside attention split over heads (wk and wv where
+    the kv heads do not divide, the qk-norms), the rest being whole;
   * the embedding, the final norm and the lm_head are gathered around
-    their use;
+    their use; the lookup and the cross-entropy are vocab-parallel;
   * the loss divides each rank's cross-entropy and z-loss sums by the
-    all-reduced count of valid tokens, so the sum over ranks, which the
-    gradients carry, is the global batch's mean (a replicated batch counts
-    each token once per rank, which the division undoes);
-  * the MoE layers route over the group (``models.moe.MoEGroup``): with
-    split rows, by the global batch's capacity and positions and with its
-    aux loss shared out linearly (an all-gather of the per-expert counts a
-    layer); with replicated rows, each rank as one device, carrying 1/world
-    of the aux; the logged ``aux_loss``, summed over ranks, is the global;
+    all-reduced count of valid tokens over ``data``, so the sum over data
+    ranks, which the gradients carry, is the global batch's mean (a
+    replicated batch counts each token once per rank, which the division
+    undoes); every model rank of a data row holds the same loss;
+  * the MoE layers route over the data group (``models.moe.MoEGroup``):
+    with split rows, by the global batch's capacity and positions and
+    with its aux loss shared out linearly (an all-gather of the
+    per-expert counts a layer); with replicated rows, each rank as one
+    device, carrying 1/world of the aux; each model rank runs its E/m
+    experts and carries 1/m of the aux; the logged ``aux_loss``, summed
+    over ranks, is the global;
   * the clip reads the global norm: every leaf's squared sum in the
-    single-device order, a sharded leaf's summed over ranks, a whole leaf's
-    counted once;
+    single-device order, a leaf split over an axis summed over it, a leaf
+    whole over an axis counted once;
   * AdamW (``train.optimizer.adamw_update``) updates the local shards in
     place.
 
@@ -39,12 +53,14 @@ need plain contiguous tensors; the gather's backward must sum the ranks'
 gradients (a ``DTensor`` redistributed from ``Shard`` to ``Replicate``
 takes its gradient as replicated and keeps its chunk, losing the sum,
 unless told ``Partial``), which the reduce-scatter here makes explicit;
-and the same code runs over NCCL and gloo.
+and the same code runs over NCCL and gloo.  At a ``model`` axis of 1 no
+``model`` collective runs and the step is the ZeRO-3 step over ``data``
+alone.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -55,13 +71,16 @@ from repro_torch.models.common import (init_params, layer_views,
                                        trainable)
 from repro_torch.models.moe import MoEGroup
 from repro_torch.parallel.act import activation_sharding, local_rows
-from repro_torch.parallel.mesh import TP_ITEM, mesh_shape
-from repro_torch.parallel.sharding import ShardingRules, spec_axes
+from repro_torch.parallel.mesh import mesh_shape
+from repro_torch.parallel.sharding import ShardingRules
+from repro_torch.parallel.tensor import (TensorParallel, all_gather_dim,
+                                         all_reduce, reduce_scatter_dim)
 from repro_torch.train.checkpoint import flatten_with_paths
 from repro_torch.train.optimizer import AdamWState, tree_map
 
-# ROADMAP.md's item for the ParallelConfig options this slice does not carry
+# ROADMAP.md's items for what the port does not carry yet
 EXTRAS_ITEM = "ROADMAP.md slice 11, item 19"
+TP_EXPERT_ITEM = "ROADMAP.md slice 8, item 13b"
 
 
 class TrainState(NamedTuple):
@@ -89,17 +108,45 @@ def check_parallel(parallel: ParallelConfig) -> None:
                                   f"saves nothing in it ('nothing')")
 
 
+def check_model_axis(model, rules: ShardingRules) -> None:
+    """Raise for the layouts over ``model`` the port does not carry: the
+    TP-expert one (the axis does not divide the experts, JAX's
+    ``moe_shard_map``), and a vocabulary or an FFN the axis does not
+    divide (JAX keeps them whole).  Heads it does not divide run whole."""
+    cfg, m = model.cfg, rules.model_size
+    if cfg.moe is not None and not rules.axis_map["experts"]:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.moe.n_experts} experts over a model axis of "
+            f"{m} (the TP-expert layout, JAX's moe_shard_map): "
+            f"{TP_EXPERT_ITEM}")
+
+    def check(path, s):
+        if set(s.axes) & {"vocab", "ffn", "experts"} \
+                and rules.split_dims(s.axes, s.shape)[1] < 0:
+            raise NotImplementedError(
+                f"{cfg.name}: {'/'.join(path)} {tuple(s.shape)} "
+                f"({s.axes}) is not split by a model axis of {m}: "
+                f"{TP_EXPERT_ITEM}")
+    tree_map_specs(check, model.param_specs())
+
+
 @dataclass(frozen=True)
 class Placement:
-    """Where a leaf lives: ``dim`` split over the data axis (-1: whole on
-    every rank); ``shape`` is the full leaf's."""
+    """Where a leaf lives: ``dim`` split over the data axis and ``mdim``
+    over the model axis (-1: whole over it); ``shape`` is the full leaf's;
+    ``block``: whole over ``model`` inside attention split over heads, so
+    that its gradient is a partial sum on each model rank even without
+    sequence parallelism."""
     dim: int
     shape: tuple
+    mdim: int = -1
+    block: bool = False
 
     def per_layer(self) -> "Placement":
         """A layer's slice of a stacked leaf (the unsplit 'layers' axis)."""
         return Placement(self.dim - 1 if self.dim >= 0 else -1,
-                         self.shape[1:])
+                         self.shape[1:],
+                         self.mdim - 1 if self.mdim >= 0 else -1, self.block)
 
 
 @dataclass(frozen=True)
@@ -117,86 +164,72 @@ def _zip_map(fn: Callable, a, b):
 
 
 # --------------------------------------------------------------------------- #
-# The collectives
+# The gather over data
 # --------------------------------------------------------------------------- #
-def all_gather(local: torch.Tensor, p: Placement, group) -> torch.Tensor:
-    """The full leaf from every rank's shard along ``p.dim``."""
-    world = dist.get_world_size(group)
-    shape = tuple(local.shape)
-    buf = torch.empty((world * shape[0],) + shape[1:], dtype=local.dtype,
-                      device=local.device)
-    dist.all_gather_into_tensor(buf, local.contiguous(), group=group)
-    if p.dim == 0:
-        return buf
-    return buf.view((world,) + shape).movedim(0, p.dim).reshape(p.shape)
-
-
-def reduce_scatter(full: torch.Tensor, p: Placement, group) -> torch.Tensor:
-    """This rank's shard of the sum over ranks of a full-shape tensor."""
-    world = dist.get_world_size(group)
-    d = p.dim
-    local = p.shape[:d] + (p.shape[d] // world,) + p.shape[d + 1:]
-    parts = full.reshape(p.shape[:d] + (world,) + local[d:]).movedim(d, 0)
-    out = torch.empty(local, dtype=full.dtype, device=full.device)
-    dist.reduce_scatter_tensor(
-        out, parts.reshape((world * local[0],) + local[1:]),
-        op=dist.ReduceOp.SUM, group=group)
-    return out
-
-
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum over ranks, in place."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    return t
-
-
 class _Gather(torch.autograd.Function):
-    """All-gather forward, reduce-scatter backward: the gathered leaf's
-    gradient is a partial sum on each rank, summed onto the shards."""
+    """All-gather forward over the data ranks' shards along ``p.dim``
+    (this model rank's part of the leaf), reduce-scatter backward: the
+    gathered leaf's gradient is a partial sum on each rank, summed onto
+    the shards."""
 
     @staticmethod
     def forward(ctx, local, p: Placement, group):
         ctx.p, ctx.group = p, group
-        return all_gather(local, p, group)
+        return all_gather_dim(local, p.dim, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return reduce_scatter(grad, ctx.p, ctx.group), None, None
+        return reduce_scatter_dim(grad, ctx.p.dim, ctx.group), None, None
 
 
 # --------------------------------------------------------------------------- #
 # The sharded state and step
 # --------------------------------------------------------------------------- #
 class FSDP:
-    """A model's parameters sharded over a mesh's ``data`` axis."""
+    """A model's parameters sharded over a mesh's ``data`` axis and split
+    over its ``model`` axis."""
 
     def __init__(self, model, mesh, parallel: ParallelConfig, device):
         check_parallel(parallel)
         shape = mesh_shape(mesh)
-        if shape.get("model", 1) != 1:
-            raise NotImplementedError(f"mesh {shape}: {TP_ITEM}")
         self.model = model
         self.rules = ShardingRules(shape, model.cfg, parallel)
         self.mesh_shape = shape
+        self.model_size = int(shape.get("model", 1))
+        if self.model_size > 1:
+            check_model_axis(model, self.rules)
         self.group = mesh.get_group("data")
         self.world = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
+        self.model_group, self.model_rank = None, 0
+        if self.model_size > 1:
+            self.model_group = mesh.get_group("model")
+            self.model_rank = dist.get_rank(self.model_group)
         self.device = torch.device(device)
         self.moe_group: Optional[MoEGroup] = None   # set by each step
+        self.tp: Optional[TensorParallel] = None     # set by each step
+        heads = bool(self.rules.axis_map["heads"])
 
-        def place(_path, s):
-            spec = self.rules.spec_for(s.axes, s.shape)
-            dims = [d for d, e in enumerate(spec) if "data" in spec_axes(e)]
-            return Placement(dims[0] if dims else -1, tuple(s.shape))
+        def place(path, s):
+            dim, mdim = self.rules.split_dims(s.axes, s.shape)
+            if self.model_size == 1:
+                mdim = -1
+            return Placement(dim, tuple(s.shape), mdim,
+                             mdim < 0 and heads and "attn" in path)
         self.placements = tree_map_specs(place, model.param_specs())
 
     # ------------------------------------------------------------------ state
     def shard(self, full: torch.Tensor, p: Placement) -> torch.Tensor:
-        """This rank's shard of a full leaf (a copy of its own)."""
-        if p.dim < 0:
+        """This rank's shard of a full leaf (a copy of its own): its model
+        rank's block, and of that its data rank's."""
+        t = full
+        if p.mdim >= 0:
+            t = t.chunk(self.model_size, p.mdim)[self.model_rank]
+        if p.dim >= 0:
+            t = t.chunk(self.world, p.dim)[self.rank]
+        if t is full:
             return full
-        return full.chunk(self.world, p.dim)[self.rank].clone(
-            memory_format=torch.contiguous_format)
+        return t.clone(memory_format=torch.contiguous_format)
 
     def init_params(self, generator: torch.Generator) -> Dict[str, Any]:
         """The single-device ``init_train_params`` values, sharded: every
@@ -220,22 +253,20 @@ class FSDP:
             whole, self.placements, self.placements))
         return dict(flatten_with_paths(tree))
 
-    def full_state(self, state) -> Optional[Any]:
-        """The state with every leaf whole, gathered leaf by leaf into host
-        memory on rank 0 (``None`` on the other ranks, which take part)."""
-        def full(local, p):
-            t = local.detach()
+    def state_leaves(self, state) -> Iterator[Tuple[str, Optional[Any]]]:
+        """(checkpoint key, the whole leaf in host memory on global rank 0,
+        None on the others), leaf by leaf: each leaf is gathered over
+        ``data`` and ``model`` when it is reached, every rank taking part,
+        so that no rank holds more than one whole leaf at a time."""
+        where = self.state_placements()
+        rank0 = dist.get_rank() == 0
+        for key, local in flatten_with_paths(state):
+            p, t = where[key], local.detach()
             if p.dim >= 0:
-                t = all_gather(t, p, self.group)
-            return t.cpu() if self.rank == 0 else None
-        whole = Placement(-1, ())
-        out = type(state)(
-            _zip_map(full, state.params, self.placements),
-            AdamWState(full(state.opt.step, whole),
-                       _zip_map(full, state.opt.exp_avg, self.placements),
-                       _zip_map(full, state.opt.exp_avg_sq,
-                                self.placements)))
-        return out if self.rank == 0 else None
+                t = all_gather_dim(t, p.dim, self.group)
+            if p.mdim >= 0:
+                t = all_gather_dim(t, p.mdim, self.model_group)
+            yield key, (t.cpu() if rank0 else None)
 
     # ------------------------------------------------------------------- step
     def split(self, params) -> Dict[str, Any]:
@@ -252,8 +283,8 @@ class FSDP:
         return out
 
     def gather(self, tree):
-        """A tree of ``Shard``s -> the full leaves, each gathered through
-        ``_Gather`` (whole leaves as they are)."""
+        """A tree of ``Shard``s -> this model rank's leaves, each gathered
+        over ``data`` through ``_Gather`` (whole leaves as they are)."""
         if isinstance(tree, dict):
             return {k: self.gather(v) for k, v in tree.items()}
         if tree.placement.dim < 0:
@@ -268,18 +299,27 @@ class FSDP:
         """This rank's rows of the global ``batch`` through the model, the
         backward, and the whole leaves' gradients summed; returns the
         step's loss metrics, summed over ranks."""
-        with activation_sharding(self.mesh_shape,
-                                 self.rules.activation_rules()):
+        rules = self.rules.activation_rules()
+        m = self.model_size
+        self.tp = None if m == 1 else TensorParallel(
+            self.model_group, m, self.model_rank,
+            seq=bool(rules["act_seq"]) and batch["tokens"].shape[1] % m == 0)
+        with activation_sharding(self.mesh_shape, rules,
+                                 {"data": self.rank,
+                                  "model": self.model_rank}):
             local = {k: local_rows(v, self.rank) for k, v in batch.items()}
-        replicas = self.world if local["labels"].shape[0] == \
-            batch["labels"].shape[0] else 1
-        self.moe_group = None if self.world == 1 else MoEGroup(
-            self.group, self.world, self.rank, split=replicas == 1)
-        loss, metrics = self.model.loss(params, local, fsdp=self)
-        loss.backward()
+            replicas = self.world if local["labels"].shape[0] == \
+                batch["labels"].shape[0] else 1
+            self.moe_group = None if self.world == 1 else MoEGroup(
+                self.group, self.world, self.rank, split=replicas == 1)
+            loss, metrics = self.model.loss(params, local, fsdp=self)
+            loss.backward()
         for p, pl in zip(tree_leaves(params), tree_leaves(self.placements)):
             if pl.dim < 0:
                 all_reduce(p.grad, self.group)
+            if self.tp is not None and pl.mdim < 0 \
+                    and (self.tp.seq or pl.block):
+                all_reduce(p.grad, self.model_group)
         names = ["loss"] + [k for k in ("ce_loss", "z_loss", "aux_loss",
                                         "tokens") if k in metrics]
         vals = torch.stack([loss.detach().float()] + [
@@ -288,16 +328,26 @@ class FSDP:
         out = dict(zip(names, vals.unbind()))
         if "tokens" in out:          # a replicated batch counted per rank
             out["tokens"] = (out["tokens"] / replicas).round().long()
+        if self.tp is not None:      # each model rank carried 1/m of the aux
+            out["aux_loss"] = all_reduce(out["aux_loss"].clone(),
+                                         self.model_group)
+            out["loss"] = (out["ce_loss"] + out.get("z_loss", 0.0)
+                           + out["aux_loss"])
         return out
 
     def global_norm(self, grads) -> torch.Tensor:
         """sqrt of every leaf's squared sum, in the single-device order: a
-        shard's summed over ranks, a whole leaf's counted once."""
+        leaf split over an axis summed over it, a leaf whole over an axis
+        counted once."""
+        def counted(p):
+            return (p.dim >= 0 or self.rank == 0) and \
+                (p.mdim >= 0 or self.model_rank == 0)
         sq = torch.stack([
-            torch.sum(torch.square(g.float()))
-            if p.dim >= 0 or self.rank == 0
+            torch.sum(torch.square(g.float())) if counted(p)
             else torch.zeros((), dtype=torch.float32, device=g.device)
             for g, p in zip(tree_leaves(grads),
                             tree_leaves(self.placements))])
-        return torch.sqrt(sum(all_reduce(sq, self.group).unbind()))
-
+        sq = all_reduce(sq, self.group)
+        if self.model_size > 1:
+            sq = all_reduce(sq, self.model_group)
+        return torch.sqrt(sum(sq.unbind()))

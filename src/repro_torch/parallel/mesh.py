@@ -6,8 +6,8 @@ are started by ``torchrun`` (``python -m torch.distributed.run``), whose
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``) says where each one stands; each rank takes
 ``cuda:LOCAL_RANK`` and NCCL, or the CPU and gloo when the caller asks for
-the CPU.  There is no fallback: a missing card or a failed NCCL start
-fails the run.
+the CPU.  There is no fallback: a missing card, a world the ``model``
+axis does not divide or a failed NCCL start fails the run.
 """
 from __future__ import annotations
 
@@ -18,9 +18,6 @@ import torch
 import torch.distributed as dist
 
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
-# ROADMAP.md's item for what this slice does not execute
-TP_ITEM = ("tensor and sequence parallelism over 'model' is ROADMAP.md "
-           "slice 6, item 8b")
 
 
 def init_distributed(device: str = "cuda") -> torch.device:
@@ -60,11 +57,15 @@ def init_distributed(device: str = "cuda") -> torch.device:
 
 
 def make_host_mesh(model_parallel: int = 1, device: str = "cuda"):
-    """A ("data", "model") ``DeviceMesh`` over every process of the world."""
+    """A ("data", "model") ``DeviceMesh`` of shape (world / model_parallel,
+    model_parallel) over every process of the world, as
+    ``repro.launch.mesh.make_host_mesh`` reshapes its devices: the ranks
+    of one ``model`` group are consecutive."""
     from torch.distributed.device_mesh import init_device_mesh
-    if model_parallel != 1:
-        raise NotImplementedError(f"model_parallel={model_parallel}: "
-                                  f"{TP_ITEM}")
+    world = int(os.environ.get("WORLD_SIZE", "0"))
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} does not divide "
+                         f"the world of {world} processes")
     dev = init_distributed(device)
     world = dist.get_world_size()
     return init_device_mesh(dev.type, (world // model_parallel,

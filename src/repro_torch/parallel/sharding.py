@@ -13,11 +13,12 @@ JAX ``PartitionSpec`` holds them.
     batch data parallelism;
   * ``pod``: data parallel across pods (multi-pod runs only).
 
-The port executes the ``data`` axis (``repro_torch.parallel.fsdp``); the
-``model``-axis rules are here for the tensor- and sequence-parallel item of
-ROADMAP.md (slice 6, item 8b), which raises until then.  The input batch's
-rule (``batch_sharding``: rows over the batch axes when they divide, else
-replicated) is ``repro_torch.parallel.act.local_rows``.
+The port executes both axes in training: ``data`` in
+``repro_torch.parallel.fsdp``, ``model`` in ``repro_torch.parallel.tensor``
+(each leaf's two dimensions from ``split_dims``).  The input batch's rule
+(``batch_sharding``: rows over the batch axes when they divide, else
+replicated) is ``repro_torch.parallel.act.local_rows``.  Serving over
+``model`` (``cache_shardings``) raises, naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 
 Spec = Tuple[Any, ...]
+# ROADMAP.md's item for serving over the model axis
+SERVE_TP_ITEM = ("serving over 'model' (JAX's cache_shardings) is "
+                 "ROADMAP.md slice 6, item 8c")
 
 
 class ShardingRules:
@@ -71,6 +75,21 @@ class ShardingRules:
             used.update(cands)
             spec.append(cands if len(cands) > 1 else cands[0])
         return tuple(spec)
+
+    def split_dims(self, axes: Tuple[Optional[str], ...],
+                   shape: Tuple[int, ...]) -> Tuple[int, int]:
+        """(the dimension ``spec_for`` splits over ``data``, the one it
+        splits over ``model``) of a leaf, -1 for none."""
+        spec = self.spec_for(axes, shape)
+
+        def dim(axis):
+            return next((d for d, e in enumerate(spec)
+                         if axis in spec_axes(e)), -1)
+        return dim("data"), dim("model")
+
+    def cache_shardings(self, *_args, **_kw):
+        """JAX's KV-cache placement over ``model``: not ported."""
+        raise NotImplementedError(SERVE_TP_ITEM)
 
     # ----------------------------------------------------------- activations
     def activation_rules(self) -> Dict[str, Tuple[str, ...]]:

@@ -14,16 +14,22 @@ synchronous, the file I/O runs on a writer thread; the ``keep`` newest steps
 are retained and stale temporary directories of crashed writers swept.
 ``restore`` loads into the tensors of the tree it is given, in place, one
 leaf at a time: at full width a second copy of the state would not fit the
-card.  Under FSDP rank 0 writes the leaves whole (gathered), and on restore
-each rank keeps its shard of each (``restore``'s ``shard``).
+card.  Sharded (``save_leaves``), the leaves come one at a time, each
+gathered whole by every rank together, and rank 0 hands each host copy to
+the writer thread through a queue a few leaves deep (no rank ever holds
+the whole state; the last leaves are written while training goes on); on
+restore each rank keeps its shard of each (``restore``'s ``shard``).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
+import queue
 import shutil
 import threading
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import zipfile
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +66,8 @@ def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
 
 
 class CheckpointManager:
+    LEAVES_IN_FLIGHT = 4        # host copies queued for the writer thread
+
     def __init__(self, directory: str, keep: int = 3, async_write: bool = True):
         self.dir = directory
         self.keep = keep
@@ -70,43 +78,84 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree, extra: Optional[Dict] = None) -> str:
         self.wait()                       # one in-flight write at a time
-        flat = flatten_with_paths(tree)
-        arrays: Dict[str, np.ndarray] = {}
-        dtypes: Dict[str, str] = {}
-        for k, v in flat:                 # device -> host now
-            arrays[k], dtypes[k] = _to_numpy(v)
-        manifest = {
-            "step": step,
-            "keys": [k for k, _ in flat],
-            "shapes": {k: list(a.shape) for k, a in arrays.items()},
-            "dtypes": dtypes,
-            "extra": extra or {},
-        }
-
-        def write():
-            final = os.path.join(self.dir, f"step_{step:08d}")
-            tmp = os.path.join(self.dir, f".tmp-step_{step:08d}")
-            shutil.rmtree(tmp, ignore_errors=True)
-            os.makedirs(tmp)
-            np.savez(os.path.join(tmp, "shard_0.npz"),
-                     **{k.replace("/", "|"): v for k, v in arrays.items()})
-            with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                json.dump(manifest, f, sort_keys=True, allow_nan=False)
-            shutil.rmtree(final, ignore_errors=True)
-            os.replace(tmp, final)
-            lat_tmp = os.path.join(self.dir, ".LATEST.tmp")
-            with open(lat_tmp, "w") as f:
-                f.write(os.path.basename(final))
-            os.replace(lat_tmp, os.path.join(self.dir, "LATEST"))
-            self._gc()
-            self._clean_stale_tmp()
-
-        if self.async_write:
-            self._thread = threading.Thread(target=write, daemon=True)
+        flat = [(k, _to_numpy(v)) for k, v in flatten_with_paths(tree)]
+        if self.async_write:              # device -> host now, files later
+            self._thread = threading.Thread(
+                target=self._write, args=(step, flat, extra), daemon=True)
             self._thread.start()
         else:
-            write()
+            self._write(step, flat, extra)
         return os.path.join(self.dir, f"step_{step:08d}")
+
+    def save_leaves(self, step: int,
+                    leaves: Iterable[Tuple[str, Optional[torch.Tensor]]],
+                    extra: Optional[Dict] = None,
+                    write: bool = True) -> Optional[str]:
+        """Write the (key, whole leaf) pairs of ``leaves`` as they come: each
+        leaf's host copy goes to the writer thread through a queue of
+        ``LEAVES_IN_FLIGHT`` leaves (synchronously without ``async_write``),
+        so that host memory holds a few leaves and the writes overlap the
+        next gathers; ``write`` False (the ranks that only take part in the
+        gathers): iterate, write nothing, return None."""
+        self.wait()
+        if not write:
+            for _ in leaves:
+                pass
+            return None
+        flat = ((k, _to_numpy(v)) for k, v in leaves)
+        if not self.async_write:
+            self._write(step, flat, extra)
+        else:
+            q: queue.Queue = queue.Queue(maxsize=self.LEAVES_IN_FLIGHT)
+
+            def drain():
+                while (item := q.get()) is not None:
+                    yield item
+            self._thread = threading.Thread(
+                target=self._write, args=(step, drain(), extra), daemon=True)
+            self._thread.start()
+            for item in itertools.chain(flat, [None]):
+                while True:
+                    try:
+                        q.put(item, timeout=1.0)
+                        break
+                    except queue.Full:
+                        if not self._thread.is_alive():
+                            raise RuntimeError(f"checkpoint step {step}: "
+                                               f"the writer thread died")
+        return os.path.join(self.dir, f"step_{step:08d}")
+
+    def _write(self, step: int, flat, extra: Optional[Dict]) -> None:
+        """The npz (members written one at a time, as ``np.savez`` writes
+        them), then the manifest, ``os.replace`` and ``LATEST``."""
+        final = os.path.join(self.dir, f"step_{step:08d}")
+        tmp = os.path.join(self.dir, f".tmp-step_{step:08d}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        keys, shapes, dtypes = [], {}, {}
+        with zipfile.ZipFile(os.path.join(tmp, "shard_0.npz"), "w",
+                             compression=zipfile.ZIP_STORED,
+                             allowZip64=True) as zf:
+            for k, (arr, dtype) in flat:
+                keys.append(k)
+                shapes[k], dtypes[k] = list(arr.shape), dtype
+                with zf.open(k.replace("/", "|") + ".npy", "w",
+                             force_zip64=True) as f:
+                    np.lib.format.write_array(f, np.asanyarray(arr),
+                                              allow_pickle=False)
+                del arr
+        manifest = {"step": step, "keys": keys, "shapes": shapes,
+                    "dtypes": dtypes, "extra": extra or {}}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, sort_keys=True, allow_nan=False)
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        lat_tmp = os.path.join(self.dir, ".LATEST.tmp")
+        with open(lat_tmp, "w") as f:
+            f.write(os.path.basename(final))
+        os.replace(lat_tmp, os.path.join(self.dir, "LATEST"))
+        self._gc()
+        self._clean_stale_tmp()
 
     def wait(self) -> None:
         if self._thread is not None:

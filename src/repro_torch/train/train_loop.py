@@ -1,5 +1,6 @@
 """Trainer: the end-to-end loop, on one device or sharded over a mesh's
-``data`` axis (ZeRO-3), and the Lit Silicon co-sim hook.
+``data`` axis (ZeRO-3) and split over its ``model`` axis (tensor, sequence
+and expert parallelism), and the Lit Silicon co-sim hook.
 
 The torch counterpart of ``repro.train.train_loop``: synthetic batches ->
 the model's loss (each layer under an activation checkpoint) -> backward ->
@@ -13,9 +14,10 @@ card), ``Trainer`` holds the state sharded (``repro_torch.parallel.fsdp``),
 also at a world of one, so that one card runs the same code: every rank
 draws the same global batch and takes its rows, the loss and the gradient
 norm are global, so the watchdog reads the same verdict on every rank; the
-hooks run on rank 0 only (the hook simulates the paper's 8-device node
-whatever the world size); rank 0 writes checkpoints whole, in the JAX
-layout, and every rank restores its shard.  Without a mesh it trains on one
+hooks run on global rank 0 only (the hook simulates the paper's 8-device
+node whatever the world size); checkpoints are written whole, in the JAX
+layout, leaf by leaf (every rank gathers each leaf, rank 0 writes it), and
+every rank restores its shard.  Without a mesh it trains on one
 device, unsharded.  The dense and MoE families train; RWKV6 models raise
 until the WKV6 kernel has a backward pass.
 """
@@ -100,7 +102,8 @@ class Trainer:
         self.model = build_model(cfg.model)
         self.fsdp = (None if mesh is None else
                      FSDP(self.model, mesh, cfg.parallel, self.device))
-        self.rank = 0 if self.fsdp is None else self.fsdp.rank
+        self.rank = 0 if self.fsdp is None else \
+            torch.distributed.get_rank()
         self.data = SyntheticTokens(cfg.data, cfg.model)
         self.ckpt = CheckpointManager(cfg.train.checkpoint_dir,
                                       keep=cfg.train.keep_checkpoints)
@@ -132,7 +135,7 @@ class Trainer:
         self.ckpt.wait()
         step = self.ckpt.latest_step() if self.rank == 0 else None
         t = torch.tensor([-1 if step is None else step], device=self.device)
-        torch.distributed.broadcast(t, 0, group=self.fsdp.group)
+        torch.distributed.broadcast(t, 0)
         return None if int(t) < 0 else int(t)
 
     def _restore(self, step: int) -> None:
@@ -198,14 +201,14 @@ class Trainer:
         return self.metrics_log
 
     def save(self) -> Optional[str]:
-        """Checkpoint the state (under FSDP: gathered leaf by leaf, written
+        """Checkpoint the state (sharded: gathered and written leaf by leaf
         by rank 0; the other ranks return None)."""
-        state = (self.state if self.fsdp is None
-                 else self.fsdp.full_state(self.state))
-        if state is None:
-            return None
-        return self.ckpt.save(self.step, state,
-                              extra={"model": self.cfg.model.name})
+        extra = {"model": self.cfg.model.name}
+        if self.fsdp is None:
+            return self.ckpt.save(self.step, self.state, extra=extra)
+        return self.ckpt.save_leaves(
+            self.step, self.fsdp.state_leaves(self.state), extra=extra,
+            write=self.rank == 0)
 
     def _rollback(self) -> None:
         latest = self._latest_step()

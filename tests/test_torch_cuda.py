@@ -933,3 +933,132 @@ def test_fsdp_world1_step_equals_unsharded_step(cuda, monkeypatch, tmp_path):
         for key, b in plain.items():
             err = float((sharded[key].float() - b.float()).abs().max())
             assert err <= 1e-6 * max(float(b.float().abs().max()), 1.0), key
+
+
+# --------------------------------------------------------------------------- #
+# Tensor, sequence and expert parallelism over "model" (NCCL)
+# --------------------------------------------------------------------------- #
+# fp32 compute on the card: the model group's sums run in another order
+# than one device's, as on the CPU (tests/test_torch_tensor_parallel.py),
+# so each step's loss and norm within the JAX package's fp32 tolerance
+TP_TOL = 2e-5
+
+
+def _tp_config(tmp_path, arch):
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.train_loop import TrainerConfig
+    cfg = get_reduced_config(arch).replace(compute_dtype="float32")
+    if cfg.moe is not None:                       # tokens dropped
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=0.5))
+    return TrainerConfig(
+        model=cfg,
+        train=TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                          grad_clip=1e9, checkpoint_every=0,
+                          checkpoint_dir=str(tmp_path)),
+        data=DataConfig(global_batch=4, seq_len=64))
+
+
+def _tp_worker(rank, world, port, configs, out):
+    """One rank over NCCL: each config's 3 steps on the (1, world) mesh."""
+    import os
+
+    from repro_torch.parallel.mesh import make_host_mesh
+    from repro_torch.train.train_loop import Trainer
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    mesh = make_host_mesh(model_parallel=world)
+    logs = {}
+    try:
+        for name, tc in configs.items():
+            logs[name] = Trainer(tc, device="cuda", mesh=mesh).run(3)
+    finally:
+        torch.distributed.destroy_process_group()
+    if rank == 0:
+        torch.save(logs, out)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.cuda
+def test_tp_world2_matches_single_process(cuda, tmp_path):
+    """Reduced fp32 llama3.1-8b and deepseek-v3-16b (expert parallel,
+    tokens dropped) on the (1, 2) mesh over two cards (NCCL, sequence
+    parallel): each step's loss, CE, aux and gradient norm equal the
+    single-process trainer's within TP_TOL."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.train.train_loop import Trainer
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL puts no two ranks of one "
+                    "communicator on one card")
+    configs = {arch: _tp_config(tmp_path / arch, arch)
+               for arch in ("llama3.1-8b", "deepseek-v3-16b")}
+    mp.start_processes(_tp_worker, args=(2, _free_port(), configs,
+                                         str(tmp_path / "tp.pt")),
+                       nprocs=2, start_method="spawn")
+    got = torch.load(tmp_path / "tp.pt")
+    for arch, tc in configs.items():
+        want = Trainer(tc, device="cuda").run(3)
+        for i, (g, w) in enumerate(zip(got[arch], want)):
+            for k in ("loss", "ce_loss", "aux_loss", "grad_norm"):
+                assert abs(g[k] - w[k]) <= TP_TOL * max(1.0, abs(w[k])), \
+                    f"{arch} step {i} {k}: {g[k]} vs {w[k]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp", [True, False])
+def test_tp_world1_mesh_runs_no_model_collective(cuda, monkeypatch,
+                                                 tmp_path, sp):
+    """At world 1 the 2-D code on the (1, 1) mesh (make_host_mesh with
+    model_parallel=1, sequence parallelism on or off) makes no
+    ``TensorParallel``, splits no leaf over ``model``, and its step equals
+    the unsharded trainer's to 1e-6 (as the FSDP world-1 step above)."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.parallel.mesh import make_host_mesh
+    from repro_torch.train.train_loop import Trainer
+    tc = _tp_config(tmp_path, "llama3.1-8b")
+    tc.parallel = ParallelConfig(sequence_parallel=sp)
+    want = Trainer(tc, device="cuda").run(2)
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="localhost",
+                     MASTER_PORT=str(_free_port())).items():
+        monkeypatch.setenv(k, v)
+    try:
+        tr = Trainer(tc, device="cuda",
+                     mesh=make_host_mesh(model_parallel=1))
+        got = tr.run(2)
+        assert tr.fsdp.tp is None and tr.fsdp.model_size == 1
+        assert all(p.mdim < 0 for p in tree_leaves(tr.fsdp.placements))
+    finally:
+        torch.distributed.destroy_process_group()
+    for g, w in zip(got, want):
+        for k in ("loss", "ce_loss", "grad_norm"):
+            assert abs(g[k] - w[k]) <= 1e-6 * abs(w[k]), k
+
+
+@pytest.mark.cuda
+def test_tp_mesh_without_a_card_per_rank_raises(cuda, monkeypatch):
+    """A rank with no card of its own, and a world the model axis does not
+    divide, raise before any group is made: no fallback to gloo."""
+    from repro_torch.parallel.mesh import make_host_mesh
+    n = torch.cuda.device_count()
+    for k, v in dict(RANK=str(n), WORLD_SIZE=str(n + 1), LOCAL_RANK=str(n),
+                     MASTER_ADDR="localhost", MASTER_PORT="1").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match=f"local rank {n} needs card {n}"):
+        make_host_mesh(model_parallel=n + 1)
+    assert not torch.distributed.is_initialized()
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="does not divide the world of 3"):
+        make_host_mesh(model_parallel=2)
+    assert not torch.distributed.is_initialized()

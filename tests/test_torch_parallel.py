@@ -34,8 +34,9 @@
   environment at world 2 (the settings of tests/test_integration.py): the
   loss falls by at least 0.2 in 30 steps, a restart resumes at step 30 and
   the gpu-red hook moves the caps.
-* The options this slice does not carry raise, naming ROADMAP.md; no
-  fallback from CUDA to gloo.
+* The options the port does not carry raise, naming ROADMAP.md (the
+  layouts over ``model`` it does not carry too); no fallback from CUDA to
+  gloo.
 """
 import contextlib
 import dataclasses
@@ -459,15 +460,20 @@ class _MeshShape:
     mesh_dim_names = ("data", "model")
 
     def size(self, i):
-        return (1, 2)[i]
+        return (1, 3)[i]
 
 
 def test_model_axis_raises_naming_the_roadmap_item():
-    model = build_model(get_reduced_config("llama3.1-8b"))
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    """The layouts over ``model`` the port does not carry raise, naming
+    ROADMAP.md: experts the axis does not divide (the TP-expert layout),
+    and serving over it (JAX's ``cache_shardings``)."""
+    model = build_model(get_reduced_config(MOE))        # 4 experts over 3
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 13b"):
         FSDP(model, _MeshShape(), ParallelConfig(), "cpu")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        make_host_mesh(model_parallel=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 8c"):
+        ShardingRules({"data": 1, "model": 2},
+                      get_reduced_config("llama3.1-8b"),
+                      ParallelConfig()).cache_shardings({})
 
 
 def test_mesh_on_cuda_has_no_fallback(monkeypatch):
