@@ -57,9 +57,22 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    tokens/s, peak memory per card, device-busy share and the device time a
    step spends in the collectives (torch.profiler: the device time under
    c10d's ``nccl:*`` annotations, and the NCCL kernels'), split into the
-   model group's and the data group's.  It runs through the same 2-D code
-   as 5d, on the (world, 1) mesh: at a world of 1 the (1, 1) mesh, where
-   no ``model`` collective runs, so it still equals phases 5 and 5c;
+   model group's and the data group's, and the collectives' device time
+   (NCCL's kernels and copies) split into the part that compute kernels
+   overlapped and the exposed rest.  It runs through the same 2-D code as 5d, on the
+   (world, 1) mesh: at a world of 1 the (1, 1) mesh, where no ``model``
+   collective runs, so it still equals phases 5 and 5c.  FSDP gathers
+   each layer a layer ahead and leaves its reduce-scatters in flight (the
+   default path); at a world of 2 or more each configuration runs again
+   gathering in place (``FSDP(prefetch=False)``) in the same spawn, on the
+   same ranks and seed, and must equal the first run bit for bit (losses,
+   grad norms, every rank's shards of the parameters and both moments),
+   both runs' figures printed side by side;
+5e. int8 gradient compression with error feedback: 3 steps of phase 5c's
+   configuration with ``grad_compression="int8"``, unsharded, then through
+   FSDP over an NCCL group of one (a spawned rank): losses, grad norms and
+   every leaf of the state (the error too) equal bit for bit, the error
+   finite;
 5d. tensor, sequence and expert parallelism over the ``model`` axis, at
    a world of 2 or more (NCCL puts no two ranks of one communicator on one
    card, so a one-card machine leaves it out): phase 5b's configurations
@@ -209,6 +222,8 @@ TRAIN_TOL = {"loss": 1e-2, "max_rel": 5e-2, "mean_rel": 2e-2}
 # sign-like first steps carry into every later loss
 FSDP_LOSS_TOL = 1e-3
 FSDP_TIMEOUT_S = 600
+# phase 5e: steps of int8 compression, unsharded and through FSDP
+INT8_STEPS = 3
 # phase 5d (tensor, sequence and expert parallel over "model") against
 # phase 5b at the same world and seed, each step's loss relative.  The row
 # products' partial sums are rounded to bf16 on each rank before the sum
@@ -1193,22 +1208,76 @@ def serve(args, arch: str) -> dict:
     return launches, by_path
 
 
+def _union(spans) -> list:
+    """Sorted disjoint (start, end) intervals covering ``spans``."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
 def busy_ms(prof) -> float:
     """The device's busy time in a profile: the union of its kernels' and
     copies' spans (kernels on two streams, as NCCL's beside the step's,
     count once where they overlap; the annotation ranges on the device
     timeline, as c10d's ``nccl:*``, not at all)."""
     from torch.autograd import DeviceType
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.is_user_annotation)
-    total, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total / 1e3
+    return sum(b - a for a, b in _union(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+        and not e.is_user_annotation)) / 1e3
+
+
+def collective_overlap(prof) -> tuple:
+    """(collective ms, overlapped ms, exposed ms, {stream: busy ms, "c" for
+    a collective stream}) of a profile, from the spans ``busy_ms`` joins.
+    A collective span is an NCCL kernel, on whatever stream it runs (c10d
+    runs a blocking collective on the caller's stream, an async one on its
+    own), every kernel or copy on a stream that runs nothing but NCCL's
+    kernels and copies (at a world of 1 NCCL copies), and a copy inside one
+    of c10d's ``nccl:*`` annotation ranges on its stream; every other span
+    is compute.  Collective ms: the union of the collective spans;
+    overlapped: the part of it during which compute ran; exposed: the
+    rest, during which the device only communicated."""
+    from torch.autograd import DeviceType
+    spans, marks, compute = [], {}, set()
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        st, a, b = e.device_resource_id, e.time_range.start, e.time_range.end
+        if e.is_user_annotation:
+            if e.name.startswith("nccl:"):
+                marks.setdefault(st, []).append((a, b))
+            continue
+        nccl = "nccl" in e.name.lower()
+        copy = e.name.startswith(("Memcpy", "Memset"))
+        spans.append((st, a, b, nccl, copy))
+        if not nccl and not copy:
+            compute.add(st)
+
+    def collective(st, a, b, nccl, copy):
+        return nccl or st not in compute or (copy and any(
+            x <= a and b <= y for x, y in marks.get(st, ())))
+    coll = _union((a, b) for sp in spans if collective(*sp)
+                  for a, b in [sp[1:3]])
+    work = _union((a, b) for sp in spans if not collective(*sp)
+                  for a, b in [sp[1:3]])
+    over, j = 0.0, 0
+    for a, b in coll:                    # both lists sorted and disjoint
+        while j < len(work) and work[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(work) and work[k][0] < b:
+            over += min(b, work[k][1]) - max(a, work[k][0])
+            k += 1
+    total = sum(b - a for a, b in coll)
+    streams = {f"{st}{'' if st in compute else 'c'}": round(sum(
+        b - a for a, b in _union(sp[1:3] for sp in spans if sp[0] == st))
+        / 1e3, 2) for st in sorted({sp[0] for sp in spans})}
+    return total / 1e3, over / 1e3, (total - over) / 1e3, streams
 
 
 def device_profile(what: str, step_ms: float, fn, top: int = 6):
@@ -1704,11 +1773,14 @@ def fsdp_setups(world: int) -> list:
 
 
 def mesh_worker(rank: int, world: int, port: int, seed: int, card: str,
-                out: str, model_parallel: list) -> None:
+                out: str, model_parallel: list, setups=None) -> None:
     """One rank of phase 5b or 5d (spawned): for each size of the ``model``
     axis, the host mesh of that shape and phase 5's and 5c's
-    configurations through the sharded trainer; rank 0 prints and writes
-    the results to ``out``."""
+    configurations (or ``setups``) through the sharded trainer; on a
+    (world, 1) mesh of two or more ranks each twice, gathering ahead (the
+    default) and in place (``FSDP(prefetch=False)``), the second held to
+    the first bit for bit; rank 0 prints and writes the results to
+    ``out``."""
     global CARD
     CARD = card
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
@@ -1721,9 +1793,17 @@ def mesh_worker(rank: int, world: int, port: int, seed: int, card: str,
     try:
         for m in model_parallel:
             mesh = make_host_mesh(model_parallel=m)
-            for setup in fsdp_setups(world):
-                results[f"{setup['arch']} {world // m}x{m}"] = _fsdp_run(
-                    rank, world, seed, mesh, setup)
+            for setup in setups or fsdp_setups(world):
+                key = f"{setup['arch']} {world // m}x{m}"
+                ab = m == 1 and world > 1             # phase 5b's A/B
+                results[key], state = _fsdp_run(rank, world, seed, mesh,
+                                                 setup, keep=ab)
+                torch.cuda.empty_cache()
+                if ab:
+                    results[key + " in place"], _ = _fsdp_run(
+                        rank, world, seed, mesh, setup, prefetch=False,
+                        against=(results[key], state))
+                del state
                 torch.cuda.empty_cache()
     except BaseException:
         # the other ranks may wait in a collective, where tearing the group
@@ -1735,6 +1815,14 @@ def mesh_worker(rank: int, world: int, port: int, seed: int, card: str,
     torch.distributed.destroy_process_group()
     if rank == 0:
         Path(out).write_text(json.dumps(results))
+
+
+def state_digest(state) -> dict:
+    """Checkpoint key -> (the sum of the leaf's bit patterns as int32 words,
+    its fp64 sum): equal digests for states equal bit for bit."""
+    return {k: (int(v.detach().contiguous().view(torch.int32)
+                    .sum(dtype=torch.int64)), float(v.detach().double().sum()))
+            for k, v in flatten_with_paths(state)}
 
 
 def collectives_by_group(coll: float, nccl: float, D: int, M: int) -> str:
@@ -1753,14 +1841,22 @@ def collectives_by_group(coll: float, nccl: float, D: int, M: int) -> str:
     return "by group: not split (both groups launch NCCL kernels)"
 
 
-def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
-    """One configuration through the sharded trainer on ``mesh``; rank 0
-    returns its results (the others None)."""
+def _fsdp_run(rank, world, seed, mesh, setup, prefetch=True, keep=False,
+              against=None) -> tuple:
+    """One configuration through the sharded trainer on ``mesh``, gathering
+    each layer a layer ahead (``prefetch``, the default path) or in place;
+    ``against``: (the results, the host copy of the state) of the same
+    configuration's other arm, which this run's losses, grad norms and
+    every leaf of the state must equal bit for bit (every rank holds its
+    shards, and all raise together).  Returns (rank 0's results, the
+    others None; with ``keep`` the host copy of this rank's state)."""
     from torch.autograd import DeviceType
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.parallel.fsdp import FSDP
     cfg = get_config(setup["arch"]).replace(n_layers=setup["layers"])
     B, S, steps = setup["batch"], setup["seq"], setup["steps"]
     D, M = mesh.size(0), mesh.size(1)
-    what = f"mesh {D}x{M}"
+    what = f"mesh {D}x{M}" + ("" if prefetch else " in place")
     tc = TrainerConfig(
         model=cfg,
         train=TrainConfig(lr=setup["lr"], warmup_steps=1,
@@ -1768,6 +1864,7 @@ def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
                           checkpoint_every=0, seed=seed,
                           checkpoint_dir=str(Path(__file__).resolve().parent
                                              / "build" / "chip_smoke_fsdp")),
+        parallel=ParallelConfig(**setup.get("parallel", {})),
         data=DataConfig(global_batch=B, seq_len=S, seed=seed))
     grads = GradientCheck()
     hooks = [LitSiliconHook(get_config(setup["arch"]), ManagerConfig(
@@ -1776,6 +1873,9 @@ def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = Trainer(tc, hooks=hooks, device="cuda", mesh=mesh)
+    if not prefetch:
+        trainer.fsdp = FSDP(trainer.model, mesh, tc.parallel, "cuda",
+                            prefetch=False)
     trainer.init_or_restore()
     torch.cuda.synchronize()
     if rank == 0:
@@ -1788,7 +1888,9 @@ def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
             f"{time.perf_counter() - t0:.1f} s; global batch {B} x S {S}, "
             f"{B // D if B % D == 0 else B} rows a data rank, "
             f"{S // M if M > 1 else S} of the residual stream's positions "
-            f"a model rank")
+            f"a model rank; gathers "
+            f"{'a layer ahead' if prefetch else 'in place'}"
+            f"{'; ' + str(tc.parallel) if setup.get('parallel') else ''}")
     for k in KERNELS:
         _build.reset_counts(k)
     torch.distributed.barrier()
@@ -1802,6 +1904,8 @@ def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
         dts.append((time.perf_counter() - t1) * 1e3)
         grads.check(trainer.step - 1, trainer)
     wall = time.perf_counter() - t0
+    # before the profiled step below
+    digest = state_digest(trainer.state) if setup.get("digest") else None
     launches = {k.__name__: k.launches for k in KERNELS}
     by_path = {k.__name__: dict(k.launches_by_path) for k in KERNELS}
     for name, want in expected_train_launches(cfg, steps).items():
@@ -1835,7 +1939,32 @@ def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
                   if rank == 0 else (None, 0.0))
     if rank != 0:
         trainer.run(1)                  # the profiled step runs everywhere
-        return None
+    ahead = dict(trainer.fsdp.prefetch_stats)
+    sums = [{k: m[k] for k in ("loss", "ce_loss", "z_loss", "aux_loss",
+                               "grad_norm") if k in m} for m in metrics]
+    state = None
+    if keep or against is not None:
+        state = {k: v.detach().cpu() for k, v in
+                 flatten_with_paths(trainer.state)}
+    if against is not None:
+        bad = [k for k, v in state.items()
+               if not torch.equal(v, against[1][k])]
+        found = [None] * world
+        torch.distributed.all_gather_object(found, bad)
+        bad = [f"rank {r}: {k}" for r, ks in enumerate(found) for k in ks]
+        if rank == 0:
+            same = sums == against[0]["sums"]
+            log(f"{what} {cfg.name} against gathering ahead (same ranks "
+                f"and seed): losses and grad norms of {len(sums)} steps "
+                f"{'equal' if same else 'DIFFER'}; state leaves that differ "
+                f"(torch.equal over every rank's shards of the parameters "
+                f"and both moments): {len(bad)} of {len(state) * world}")
+            bad += [] if same else ["losses"]
+        if bad:
+            raise AssertionError(f"{what} {cfg.name}: gathering in place "
+                                 f"differs from gathering ahead: {bad[:8]}")
+    if rank != 0:
+        return None, state
     # c10d's annotation of each collective on the device timeline: the
     # device time of what NCCL ran for it (kernels; copies at world 1)
     ranges = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
@@ -1845,22 +1974,33 @@ def _fsdp_run(rank, world, seed, mesh, setup) -> dict:
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation and "nccl" in e.key.lower())
     coll = sum(ranges.values())
+    streams_ms, over, exposed, streams = collective_overlap(prof)
     log(f"{what} {cfg.name} collectives in a step (rank 0): "
         f"{coll:.2f} ms of device time "
         f"{ {k: round(v, 3) for k, v in ranges.items()} } (NCCL kernels "
         f"{nccl:.2f} ms); {collectives_by_group(coll, nccl, D, M)}; busy "
         f"{busy:.2f} of {step_ms:.2f} ms ({100 * busy / step_ms:.1f}%); "
         f"{CARD}")
+    log(f"{what} {cfg.name} overlap (rank 0's profiled step): "
+        f"collectives {streams_ms:.2f} ms of device time, of it "
+        f"{over:.2f} ms overlapped by compute kernels and "
+        f"{exposed:.2f} ms exposed (busy ms by stream, c: collective only "
+        f"{streams}); layers gathered ahead {ahead['layers']}"
+        f" (at most {ahead['most_ahead']} at a time); {step_ms:.1f} "
+        f"ms/step, busy {100 * busy / step_ms:.1f}%, peak "
+        f"{max(r[2] for r in ranks):.2f} GB a card; {CARD}")
     return {
         "losses": losses, "step_ms": step_ms, "peak_gb": [r[2] for r in ranks],
         "busy_ms": busy, "collective_ms": coll, "nccl_ms": nccl,
+        "overlapped_ms": over, "exposed_ms": exposed, "ahead": ahead,
+        "sums": sums, "digest": digest,
         "launches": {k: sum(r[0][k] for r in ranks) for k in launches},
         "by_path": {k: {p: sum(r[1][k][p] for r in ranks) for p in v}
-                    for k, v in by_path.items()}}
+                    for k, v in by_path.items()}}, state
 
 
 def spawn_meshes(args, world: int, model_parallel: list, timeout: float,
-                 name: str) -> dict:
+                 name: str, setups=None) -> dict:
     """``mesh_worker`` over ``world`` spawned ranks (NCCL), with a deadline;
     returns rank 0's results."""
     import shutil
@@ -1874,7 +2014,8 @@ def spawn_meshes(args, world: int, model_parallel: list, timeout: float,
     out.unlink(missing_ok=True)
     torch.cuda.empty_cache()
     ctx = mp.start_processes(mesh_worker, args=(world, port, args.seed, CARD,
-                                                str(out), model_parallel),
+                                                str(out), model_parallel,
+                                                setups),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
@@ -1895,14 +2036,31 @@ def fsdp_train(args, unsharded: dict) -> tuple:
     phase 5d (at a world of 1 the (1, 1) mesh: no ``model`` collective
     runs); phase 5's and phase 5c's configurations; at a world of 1 each
     run's losses held to the unsharded run's (``unsharded``: arch ->
-    losses): llama's within FSDP_LOSS_TOL, the MoE run's bit for bit.
-    Returns ({run: (launch counts, counts by path)} summed over the ranks,
-    {arch: losses})."""
+    losses): llama's within FSDP_LOSS_TOL, the MoE run's bit for bit; at a
+    world of 2 or more each configuration also gathering in place, held to
+    the default path (gathering a layer ahead) bit for bit.  Returns
+    ({run: (launch counts, counts by path)} summed over the ranks, of the
+    default path, {arch: losses})."""
     world = min(torch.cuda.device_count(), 8)
     runs, losses = {}, {}
-    for key, res in spawn_meshes(args, world, [1], FSDP_TIMEOUT_S,
-                                 "fsdp").items():
+    results = spawn_meshes(args, world, [1], FSDP_TIMEOUT_S, "fsdp")
+    for key, res in results.items():
         arch = key.split()[0]
+        if key.endswith(" in place"):
+            ahead = results[key[:-len(" in place")]]
+            log(f"fsdp world {world} {arch}, gathering a layer ahead | in "
+                f"place (one call, same ranks and seed, equal bit for bit): "
+                f"{ahead['step_ms']:.1f} | {res['step_ms']:.1f} ms/step, "
+                f"busy {100 * ahead['busy_ms'] / ahead['step_ms']:.1f} | "
+                f"{100 * res['busy_ms'] / res['step_ms']:.1f}%, "
+                f"collectives {ahead['overlapped_ms'] + ahead['exposed_ms']:.2f}"
+                f" | {res['overlapped_ms'] + res['exposed_ms']:.2f} ms, of "
+                f"it overlapped {ahead['overlapped_ms']:.2f} | "
+                f"{res['overlapped_ms']:.2f} and exposed "
+                f"{ahead['exposed_ms']:.2f} | {res['exposed_ms']:.2f} ms, "
+                f"peak {max(ahead['peak_gb']):.2f} | "
+                f"{max(res['peak_gb']):.2f} GB a card; {CARD}")
+            continue
         if world == 1:
             # llama: within FSDP_LOSS_TOL; the MoE run bit for bit
             want = unsharded[arch][:len(res["losses"])]
@@ -1922,6 +2080,66 @@ def fsdp_train(args, unsharded: dict) -> tuple:
         runs[f"{arch} fsdp"] = (res["launches"], res["by_path"])
         losses[arch] = res["losses"]
     return runs, losses
+
+
+def int8_train(args) -> dict:
+    """Phase 5e: int8 gradient compression with error feedback, 3 steps of
+    phase 5b's world-1 MoE configuration (phase 5c's, which 5b holds bit
+    for bit) with ``grad_compression="int8"``: unsharded in this process,
+    then through FSDP over an NCCL group of one (a spawned rank, its
+    gathers a layer ahead); the losses, grad norms and every leaf of the
+    state (parameters, both moments, the error) equal bit for bit, the
+    error finite.  Returns {run: (launch counts, counts by path)}."""
+    from repro_torch.configs import ParallelConfig
+    setup = dict(TRAIN_MOE, steps=INT8_STEPS, total_steps=TRAIN_MOE["steps"],
+                 parallel={"grad_compression": "int8"}, digest=True)
+    cfg = get_config(setup["arch"]).replace(n_layers=setup["layers"])
+    tc = TrainerConfig(
+        model=cfg,
+        train=TrainConfig(lr=setup["lr"], warmup_steps=1,
+                          total_steps=setup["total_steps"], checkpoint_every=0,
+                          seed=args.seed,
+                          checkpoint_dir=str(Path(__file__).resolve().parent
+                                             / "build" / "chip_smoke_int8")),
+        parallel=ParallelConfig(**setup["parallel"]),
+        data=DataConfig(global_batch=setup["batch"], seq_len=setup["seq"],
+                        seed=args.seed))
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        _build.reset_counts(k)
+    trainer = Trainer(tc, device="cuda")
+    metrics = trainer.run(setup["steps"])            # the main path
+    torch.cuda.synchronize()
+    runs = {f"{cfg.name} int8": (
+        {k.__name__: k.launches for k in KERNELS},
+        {k.__name__: dict(k.launches_by_path) for k in KERNELS})}
+    for name, n in expected_train_launches(cfg, setup["steps"]).items():
+        if runs[f"{cfg.name} int8"][0][name] != n:
+            raise AssertionError(f"int8 {name}: {runs[f'{cfg.name} int8'][0]}"
+                                 f" launches, expected {n}")
+    want = [[m[k] for k in ("loss", "grad_norm")] for m in metrics]
+    digest = state_digest(trainer.state)
+    finite = all(bool(torch.isfinite(e).all())
+                 for e in tree_leaves(trainer.state.err))
+    err_max = max(float(e.abs().max()) for e in tree_leaves(trainer.state.err))
+    log(f"int8 {cfg.name} {cfg.n_layers} layers unsharded: losses and grad "
+        f"norms {want}; error finite {finite}, largest |err| {err_max:.3e}; "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {CARD}")
+    del trainer, metrics
+    torch.cuda.empty_cache()
+    res = spawn_meshes(args, 1, [1], FSDP_TIMEOUT_S, "int8", [setup])
+    (key, got), = res.items()
+    same = ([[s["loss"], s["grad_norm"]] for s in got["sums"]][:len(want)]
+            == want and got["digest"] == {k: list(v)
+                                          for k, v in digest.items()})
+    log(f"int8 {cfg.name} through FSDP at world 1 ({key}) against the "
+        f"unsharded int8 run: losses, grad norms and all {len(digest)} "
+        f"state leaves' digests {'equal' if same else 'DIFFER'}")
+    if not (same and finite):
+        raise AssertionError(f"int8: FSDP at world 1 and the unsharded "
+                             f"trainer disagree, or the error is not finite")
+    runs[f"{cfg.name} int8 fsdp"] = (got["launches"], got["by_path"])
+    return runs
 
 
 def tp_meshes(world: int) -> list:
@@ -2102,6 +2320,7 @@ def main(argv=None) -> int:
         train_kernel_vs_plain(args, setup["arch"])
     runs, fsdp_losses = fsdp_train(args, losses)
     by_run.update(runs)
+    by_run.update(int8_train(args))                           # phase 5e
     by_run.update(tp_train(args, fsdp_losses))                # phase 5d
     by_name = {row["name"]: row for row in rows}
     device_times(g, by_name)

@@ -179,9 +179,10 @@ class DecoderOnlyLM:
                tp=None):
         """Layer i of the forward pass: (x, the MoE aux loss or None).
         ``gather``: the layer's leaves are shards, gathered here (inside
-        the activation checkpoint, so the recompute gathers them again)."""
+        the activation checkpoint, so the recompute gathers them again),
+        ``gather(lp, i)``."""
         if gather is not None:
-            lp = gather(lp)
+            lp = gather(lp, i)
         h = apply_norm(self.cfg, lp["ln1"], x)
         return self._ffn(i, lp, x + self._attention(lp["attn"], h, positions,
                                                     tp), moe_group, tp)

@@ -18,6 +18,15 @@ is whole over that axis (the norm weights over both).  In a step:
     all-gathered over ``data``, cast to the compute dtype by the model and
     used, then freed; the recompute in the backward gathers them again;
     the gather's backward reduce-scatters the gradient onto the shards;
+  * these gathers and reduce-scatters overlap the compute (the paper's C3,
+    which JAX gets from XLA's latency-hiding scheduler): when layer i's
+    gather is consumed, layer i+1's is issued (async, on a second process
+    group over the data ranks, ``mesh.param_group``), and when layer i's
+    recompute begins, layer i-1's; layer i's reduce-scatters are left in
+    flight while layer i-1's backward runs (``FSDP.gather``); at most one
+    layer is gathered ahead; the sums and their order are the same as
+    gathering in place (``prefetch=False``), so the step is the same bit
+    for bit;
   * over ``model`` the layers run on their local heads, ffn and experts
     (``repro_torch.parallel.tensor``, ``TensorParallel``), the residual
     stream on this rank's sequence rows under sequence parallelism;
@@ -44,6 +53,10 @@ is whole over that axis (the norm weights over both).  In a step:
   * the clip reads the global norm: every leaf's squared sum in the
     single-device order, a leaf split over an axis summed over it, a leaf
     whole over an axis counted once;
+  * with ``grad_compression="int8"`` the gradients pass through int8 with
+    error feedback first (``parallel.compression``; the error sharded as
+    the parameters are), a leaf split along its last axis quantized
+    against the whole slice's largest magnitude;
   * AdamW (``train.optimizer.adamw_update``) updates the local shards in
     place.
 
@@ -71,7 +84,7 @@ from repro_torch.models.common import (init_params, layer_views,
                                        trainable)
 from repro_torch.models.moe import MoEGroup
 from repro_torch.parallel.act import activation_sharding, local_rows
-from repro_torch.parallel.mesh import mesh_shape
+from repro_torch.parallel.mesh import mesh_shape, param_group
 from repro_torch.parallel.sharding import ShardingRules
 from repro_torch.parallel.tensor import (TensorParallel, all_gather_dim,
                                          all_reduce, reduce_scatter_dim)
@@ -79,33 +92,36 @@ from repro_torch.train.checkpoint import flatten_with_paths
 from repro_torch.train.optimizer import AdamWState, tree_map
 
 # ROADMAP.md's items for what the port does not carry yet
-EXTRAS_ITEM = "ROADMAP.md slice 11, item 19"
+EXTRAS_ITEM = "ROADMAP.md slice 11, item 19b"
+REMAT_ITEM = "ROADMAP.md slice 6, item 8d"
 TP_EXPERT_ITEM = "ROADMAP.md slice 8, item 13b"
+COMPRESSIONS = ("none", "int8")
 
 
 class TrainState(NamedTuple):
-    """The JAX package's TrainState without its grad-compression error
-    feedback (``grad_compression`` raises): the same checkpoint keys."""
+    """The JAX package's TrainState: ``err`` is the int8 gradient
+    compression's error feedback (None without it); the same checkpoint
+    keys (``err/...`` with it)."""
     params: Any
     opt: AdamWState
+    err: Optional[Any] = None
 
 
 def check_parallel(parallel: ParallelConfig) -> None:
-    """Raise for the options the port does not carry yet."""
+    """Raise for the options the port does not carry yet.
+    ``explicit_overlap`` is accepted and read nowhere, as in the JAX
+    package: the overlap is FSDP's default path."""
     if parallel.multi_pod:
         raise NotImplementedError(f"multi_pod (a data axis across hosts): "
                                   f"{EXTRAS_ITEM}")
-    if parallel.explicit_overlap:
-        raise NotImplementedError(f"explicit_overlap (the prefetching FSDP "
-                                  f"variant): {EXTRAS_ITEM}")
-    if parallel.grad_compression != "none":
-        raise NotImplementedError(f"grad_compression="
-                                  f"{parallel.grad_compression!r}: "
-                                  f"{EXTRAS_ITEM}")
+    if parallel.grad_compression not in COMPRESSIONS:
+        raise ValueError(f"grad_compression={parallel.grad_compression!r}: "
+                         f"one of {COMPRESSIONS}")
     if parallel.remat_policy != "nothing":
         raise NotImplementedError(f"remat_policy={parallel.remat_policy!r}: "
                                   f"the port checkpoints every layer and "
-                                  f"saves nothing in it ('nothing')")
+                                  f"saves nothing in it ('nothing'): "
+                                  f"{REMAT_ITEM}")
 
 
 def check_model_axis(model, rules: ShardingRules) -> None:
@@ -170,16 +186,27 @@ class _Gather(torch.autograd.Function):
     """All-gather forward over the data ranks' shards along ``p.dim``
     (this model rank's part of the leaf), reduce-scatter backward: the
     gathered leaf's gradient is a partial sum on each rank, summed onto
-    the shards."""
+    the shards.  ``ahead``: the gather, issued earlier (a ``Pending``),
+    waited for here; ``sink``: takes the reduce-scatter, issued async, and
+    the gradient is its output, read only once the sink's owner has waited
+    for it."""
 
     @staticmethod
-    def forward(ctx, local, p: Placement, group):
-        ctx.p, ctx.group = p, group
+    def forward(ctx, local, p: Placement, group, ahead=None, sink=None):
+        ctx.p, ctx.group, ctx.sink = p, group, sink
+        if ahead is not None:
+            return ahead.wait()
         return all_gather_dim(local, p.dim, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return reduce_scatter_dim(grad, ctx.p.dim, ctx.group), None, None
+        if ctx.sink is None:
+            return (reduce_scatter_dim(grad, ctx.p.dim, ctx.group),
+                    None, None, None, None)
+        pending = reduce_scatter_dim(grad, ctx.p.dim, ctx.group,
+                                     async_op=True)
+        ctx.sink(pending)
+        return pending.out, None, None, None, None
 
 
 # --------------------------------------------------------------------------- #
@@ -187,9 +214,12 @@ class _Gather(torch.autograd.Function):
 # --------------------------------------------------------------------------- #
 class FSDP:
     """A model's parameters sharded over a mesh's ``data`` axis and split
-    over its ``model`` axis."""
+    over its ``model`` axis.  ``prefetch`` False gathers each layer where
+    it is used and waits for each reduce-scatter at once (the same sums:
+    for tests and A/B timing only)."""
 
-    def __init__(self, model, mesh, parallel: ParallelConfig, device):
+    def __init__(self, model, mesh, parallel: ParallelConfig, device,
+                 prefetch: bool = True):
         check_parallel(parallel)
         shape = mesh_shape(mesh)
         self.model = model
@@ -217,6 +247,22 @@ class FSDP:
             return Placement(dim, tuple(s.shape), mdim,
                              mdim < 0 and heads and "attn" in path)
         self.placements = tree_map_specs(place, model.param_specs())
+        # per leaf (tree order), the groups splitting its last axis: the
+        # int8 compression's slices span them
+        self.last_axis_groups = [
+            tuple(g for g, d, size in ((self.group, p.dim, self.world),
+                                       (self.model_group, p.mdim,
+                                        self.model_size))
+                  if size > 1 and d == len(p.shape) - 1)
+            for p in tree_leaves(self.placements)]
+        self.param_group = param_group(mesh)
+        self.prefetch = prefetch
+        self._layers: list = []        # the step's per-layer Shard trees
+        self._backward = False         # the step's backward has begun
+        self._ahead = None             # (layer, its gathers in flight)
+        self._in_flight = 0            # layers gathered ahead, not yet used
+        self._scatters: list = []      # [(layer, reduce-scatter in flight)]
+        self.prefetch_stats = {"layers": 0, "most_ahead": 0}
 
     # ------------------------------------------------------------------ state
     def shard(self, full: torch.Tensor, p: Placement) -> torch.Tensor:
@@ -246,11 +292,13 @@ class FSDP:
             node = node[k]
         return node
 
-    def state_placements(self) -> Dict[str, Placement]:
-        """Checkpoint key -> placement, over a whole ``TrainState``."""
+    def state_placements(self, err: bool = False) -> Dict[str, Placement]:
+        """Checkpoint key -> placement, over a whole ``TrainState`` (with
+        the compression's error tree: ``err``)."""
         whole = Placement(-1, ())
         tree = TrainState(self.placements, AdamWState(
-            whole, self.placements, self.placements))
+            whole, self.placements, self.placements),
+            self.placements if err else None)
         return dict(flatten_with_paths(tree))
 
     def state_leaves(self, state) -> Iterator[Tuple[str, Optional[Any]]]:
@@ -258,7 +306,7 @@ class FSDP:
         None on the others), leaf by leaf: each leaf is gathered over
         ``data`` and ``model`` when it is reached, every rank taking part,
         so that no rank holds more than one whole leaf at a time."""
-        where = self.state_placements()
+        where = self.state_placements(state.err is not None)
         rank0 = dist.get_rank() == 0
         for key, local in flatten_with_paths(state):
             p, t = where[key], local.detach()
@@ -271,25 +319,107 @@ class FSDP:
     # ------------------------------------------------------------------- step
     def split(self, params) -> Dict[str, Any]:
         """Local shards in the JAX layout -> the model's per-layer tree of
-        ``Shard``s (each layer's views of the stacked groups)."""
+        ``Shard``s (each layer's views of the stacked groups).  With
+        ``prefetch``, each stacked leaf's backward (which stacks its
+        layers' gradients) first waits for its group's reduce-scatters
+        still in flight."""
         groups = [f"g{gi}" for gi in range(len(self.model.layer_groups()))]
         out = {k: _zip_map(Shard, v, self.placements[k])
                for k, v in params.items() if k not in groups}
         out["layers"] = []
         for g, (n, _) in zip(groups, self.model.layer_groups()):
             per = tree_map(Placement.per_layer, self.placements[g])
+            lo = len(out["layers"])
             out["layers"] += [_zip_map(Shard, lp, per)
                               for lp in layer_views(params[g], n)]
+            for s in tree_leaves(out["layers"][lo]) if self.prefetch else ():
+                if s.placement.dim >= 0 and s.local.grad_fn is not None:
+                    s.local.grad_fn.register_prehook(
+                        lambda _, lo=lo, hi=lo + n:
+                        self._wait_scatters(lambda i: lo <= i < hi))
+        self._layers = out["layers"]
         return out
 
-    def gather(self, tree):
+    def gather(self, tree, layer: Optional[int] = None):
         """A tree of ``Shard``s -> this model rank's leaves, each gathered
-        over ``data`` through ``_Gather`` (whole leaves as they are)."""
+        over ``data`` through ``_Gather`` (whole leaves as they are) on the
+        parameter group.  ``layer``: the tree is that layer's; with
+        ``prefetch`` its gathers were issued a layer ahead (in the forward
+        while layer - 1 ran, in the backward while layer + 1 was recomputed
+        and differentiated) and are waited for here, the next layer's are
+        issued, and the reduce-scatters of its backward are left in flight
+        (waited for two layers on, or where its stacked leaf's gradients
+        are stacked)."""
+        if layer is None or not self.prefetch:
+            return self._gather(tree)
+        ahead = None
+        if self._ahead is not None:
+            at, ahead = self._ahead
+            self._ahead = None
+            self._in_flight -= 1
+            if at != layer:
+                self._wait(ahead)
+                raise RuntimeError(f"FSDP prefetch: layer {at} was gathered "
+                                   f"ahead, layer {layer} came")
+        out = self._gather(tree, ahead, lambda pending:
+                           self._scatters.append((layer, pending)))
+        if self._backward:
+            # the parameter group ran these before this layer's gather,
+            # just waited for: the wait costs nothing and frees their inputs
+            self._wait_scatters(lambda i: i >= layer + 2)
+        nxt = layer - 1 if self._backward else layer + 1
+        if 0 <= nxt < len(self._layers):
+            with torch.no_grad():
+                self._ahead = (nxt, self._issue(self._layers[nxt]))
+            self._in_flight += 1
+            stats = self.prefetch_stats
+            stats["layers"] += 1
+            stats["most_ahead"] = max(stats["most_ahead"], self._in_flight)
+        return out
+
+    def _gather(self, tree, ahead=None, sink=None):
         if isinstance(tree, dict):
-            return {k: self.gather(v) for k, v in tree.items()}
+            return {k: self._gather(v, None if ahead is None else ahead[k],
+                                    sink) for k, v in tree.items()}
         if tree.placement.dim < 0:
             return tree.local
-        return _Gather.apply(tree.local, tree.placement, self.group)
+        return _Gather.apply(tree.local, tree.placement, self.param_group,
+                             ahead, sink)
+
+    def _issue(self, tree):
+        """A layer's gathers, issued async: the same tree of ``Pending``s
+        (None for a leaf whole over ``data``)."""
+        if isinstance(tree, dict):
+            return {k: self._issue(v) for k, v in tree.items()}
+        if tree.placement.dim < 0:
+            return None
+        return all_gather_dim(tree.local.detach(), tree.placement.dim,
+                              self.param_group, async_op=True)
+
+    @staticmethod
+    def _wait(ahead) -> None:
+        for pending in tree_leaves(ahead):
+            pending.wait()
+
+    def _settle(self) -> None:
+        """After a step's backward (or a failed step): wait for whatever
+        is still in flight and drop the step's layers."""
+        self._wait_scatters(lambda i: True)
+        if self._ahead is not None:
+            self._wait(self._ahead[1])
+        self._ahead, self._in_flight = None, 0
+        self._backward, self._layers = False, []
+
+    def _wait_scatters(self, which: Callable[[int], bool]) -> None:
+        """Make the current stream wait for the reduce-scatters in flight
+        of the layers ``which`` picks (their inputs are then released)."""
+        left = []
+        for layer, pending in self._scatters:
+            if which(layer):
+                pending.wait()
+            else:
+                left.append((layer, pending))
+        self._scatters = left
 
     def token_count(self, n: torch.Tensor) -> torch.Tensor:
         """The all-reduced count of valid tokens, at least 1."""
@@ -312,8 +442,13 @@ class FSDP:
                 batch["labels"].shape[0] else 1
             self.moe_group = None if self.world == 1 else MoEGroup(
                 self.group, self.world, self.rank, split=replicas == 1)
-            loss, metrics = self.model.loss(params, local, fsdp=self)
-            loss.backward()
+            self.prefetch_stats = {"layers": 0, "most_ahead": 0}
+            try:
+                loss, metrics = self.model.loss(params, local, fsdp=self)
+                self._backward = True
+                loss.backward()
+            finally:
+                self._settle()
         for p, pl in zip(tree_leaves(params), tree_leaves(self.placements)):
             if pl.dim < 0:
                 all_reduce(p.grad, self.group)

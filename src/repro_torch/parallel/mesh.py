@@ -76,3 +76,20 @@ def make_host_mesh(model_parallel: int = 1, device: str = "cuda"):
 def mesh_shape(mesh) -> Dict[str, int]:
     """{axis name: size} of a ``DeviceMesh``, what ``ShardingRules`` reads."""
     return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
+
+
+def param_group(mesh):
+    """A second process group over the ranks of this rank's ``data`` group,
+    made once per mesh (every rank creates every data group's, in the same
+    order): FSDP's parameter gathers and gradient reduce-scatters run on
+    it, so that the step's other collectives over ``data`` (the MoE
+    layers' expert counts, the token count) do not queue behind a gather
+    issued a layer ahead on one communicator."""
+    group = getattr(mesh, "_param_group", None)
+    if group is None:
+        ranks = mesh.mesh.reshape(mesh.size(0), -1)          # (data, model)
+        group, _ = dist.new_subgroups_by_enumeration(
+            [ranks[:, m].tolist() for m in range(ranks.shape[1])])
+        mesh._param_group = group
+    return group
+

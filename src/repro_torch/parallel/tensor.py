@@ -46,29 +46,55 @@ from repro_torch.parallel.act import shard_residual
 # --------------------------------------------------------------------------- #
 # Plain collectives along one dimension
 # --------------------------------------------------------------------------- #
-def all_gather_dim(local: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Every rank's ``local`` joined along ``dim``, in rank order."""
+class Pending:
+    """A collective issued with ``async_op=True``: its buffers are held
+    here until ``wait``, which makes the caller's (current) stream wait
+    for it (on NCCL; on gloo the host waits) and returns the result.
+    ``out``: the output buffer, not to be read before ``wait``."""
+
+    def __init__(self, work, out: torch.Tensor, keep=(), finish=None):
+        self.work, self.out, self.keep, self.finish = work, out, keep, finish
+
+    def wait(self) -> torch.Tensor:
+        self.work.wait()
+        self.keep = ()
+        return self.out if self.finish is None else self.finish(self.out)
+
+
+def all_gather_dim(local: torch.Tensor, dim: int, group,
+                   async_op: bool = False):
+    """Every rank's ``local`` joined along ``dim``, in rank order (a
+    ``Pending`` of it with ``async_op``)."""
     world = dist.get_world_size(group)
     shape = tuple(local.shape)
+    local = local.contiguous()
     buf = local.new_empty((world * shape[0],) + shape[1:])
-    dist.all_gather_into_tensor(buf, local.contiguous(), group=group)
-    if dim == 0:
-        return buf
-    full = shape[:dim] + (world * shape[dim],) + shape[dim + 1:]
-    return buf.view((world,) + shape).movedim(0, dim).reshape(full)
+    work = dist.all_gather_into_tensor(buf, local, group=group,
+                                       async_op=async_op)
+
+    def joined(buf):
+        if dim == 0:
+            return buf
+        full = shape[:dim] + (world * shape[dim],) + shape[dim + 1:]
+        return buf.view((world,) + shape).movedim(0, dim).reshape(full)
+    if async_op:
+        return Pending(work, buf, keep=(local,), finish=joined)
+    return joined(buf)
 
 
-def reduce_scatter_dim(full: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """This rank's block along ``dim`` of the sum over ranks of ``full``."""
+def reduce_scatter_dim(full: torch.Tensor, dim: int, group,
+                       async_op: bool = False):
+    """This rank's block along ``dim`` of the sum over ranks of ``full``
+    (a ``Pending`` of it with ``async_op``)."""
     world = dist.get_world_size(group)
     shape = tuple(full.shape)
     local = shape[:dim] + (shape[dim] // world,) + shape[dim + 1:]
     parts = full.reshape(shape[:dim] + (world,) + local[dim:]).movedim(dim, 0)
+    parts = parts.reshape((world * local[0],) + local[1:]).contiguous()
     out = full.new_empty(local)
-    dist.reduce_scatter_tensor(
-        out, parts.reshape((world * local[0],) + local[1:]).contiguous(),
-        op=dist.ReduceOp.SUM, group=group)
-    return out
+    work = dist.reduce_scatter_tensor(out, parts, op=dist.ReduceOp.SUM,
+                                      group=group, async_op=async_op)
+    return Pending(work, out, keep=(parts,)) if async_op else out
 
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:

@@ -4,6 +4,7 @@ and expert parallelism), and the Lit Silicon co-sim hook.
 
 The torch counterpart of ``repro.train.train_loop``: synthetic batches ->
 the model's loss (each layer under an activation checkpoint) -> backward ->
+int8 compression with error feedback (``grad_compression="int8"``) ->
 global-norm clip and AdamW -> atomic/async checkpoints -> watchdog rollback
 -> hooks.  ``LitSiliconHook`` has the JAX package's body: each real training
 step advances the thermal/C3 node simulation one iteration and feeds its
@@ -38,6 +39,7 @@ from repro_torch.core.thermal import PRESETS
 from repro_torch.core.workload import fsdp_llm_iteration
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.registry import build_model
+from repro_torch.parallel.compression import compress_grads_, init_error_tree
 from repro_torch.parallel.fsdp import FSDP, TrainState, check_parallel
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import DataConfig, SyntheticTokens
@@ -118,7 +120,9 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = (self.model.init_train_params(gen, self.device)
                   if self.fsdp is None else self.fsdp.init_params(gen))
-        return TrainState(params, init_state(params))
+        err = (init_error_tree(params)
+               if self.cfg.parallel.grad_compression == "int8" else None)
+        return TrainState(params, init_state(params), err)
 
     def init_or_restore(self) -> None:
         self.state = self._init_state(self.cfg.train.seed)
@@ -143,16 +147,17 @@ class Trainer:
         rank its shards)."""
         shard = None
         if self.fsdp is not None:
-            where = self.fsdp.state_placements()
+            where = self.fsdp.state_placements(self.state.err is not None)
             shard = lambda key, t: self.fsdp.shard(t, where[key])  # noqa: E731
         _, manifest = self.ckpt.restore(self.state, step, shard=shard)
         self.step = manifest["step"]
 
     # ------------------------------------------------------------------ step
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        """Loss, backward, clip and AdamW on the state, in place; returns the
-        step's metrics (tensors).  The gradients stay on the parameters
-        (``.grad``) until the next step."""
+        """Loss, backward, the int8 round trip (with error feedback), clip
+        and AdamW on the state, in place; returns the step's metrics
+        (tensors).  The gradients (after the round trip) stay on the
+        parameters (``.grad``) until the next step."""
         params = self.state.params
         for p in tree_leaves(params):
             p.grad = None
@@ -166,6 +171,9 @@ class Trainer:
         else:
             metrics = self.fsdp.loss_and_backward(params, batch)
         grads = tree_map(lambda p: p.grad, params)
+        if self.state.err is not None:
+            compress_grads_(grads, self.state.err, None if self.fsdp is None
+                            else self.fsdp.last_axis_groups)
         if self.fsdp is not None:
             norm = self.fsdp.global_norm(grads)
         _, opt, om = adamw_update(self.cfg.train, params, grads,

@@ -1062,3 +1062,109 @@ def test_tp_mesh_without_a_card_per_rank_raises(cuda, monkeypatch):
     with pytest.raises(ValueError, match="does not divide the world of 3"):
         make_host_mesh(model_parallel=2)
     assert not torch.distributed.is_initialized()
+
+
+# --------------------------------------------------------------------------- #
+# FSDP's overlap over an NCCL group of one
+# --------------------------------------------------------------------------- #
+def _world1_arms(monkeypatch, tc, arms, steps=2):
+    """``tc`` through FSDP over an NCCL group of one, once per arm (gather
+    ahead or in place): [(metrics, state by key, gathers-ahead counts)],
+    the states kept on the card."""
+    from repro_torch.parallel.fsdp import FSDP
+    from repro_torch.parallel.mesh import make_host_mesh
+    from repro_torch.train.checkpoint import flatten_with_paths
+    from repro_torch.train.train_loop import Trainer
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="localhost",
+                     MASTER_PORT=str(_free_port())).items():
+        monkeypatch.setenv(k, v)
+    out = []
+    try:
+        mesh = make_host_mesh()
+        for prefetch in arms:
+            tr = Trainer(tc, device="cuda", mesh=mesh)
+            tr.fsdp = FSDP(tr.model, mesh, tc.parallel, "cuda",
+                           prefetch=prefetch)
+            log = tr.run(steps)
+            state = {k: v.detach() for k, v in flatten_with_paths(tr.state)}
+            out.append((log, state, dict(tr.fsdp.prefetch_stats)))
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def _assert_same_arms(ahead, in_place, layers):
+    (log_a, state_a, stats_a), (log_b, state_b, stats_b) = ahead, in_place
+    assert log_a == log_b
+    assert state_a.keys() == state_b.keys()
+    for key, a in state_a.items():
+        assert torch.equal(a, state_b[key]), key
+    assert stats_a == {"layers": 2 * (layers - 1), "most_ahead": 1}
+    assert stats_b == {"layers": 0, "most_ahead": 0}
+
+
+def _full_width(arch, layers, tmp_path):
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.train_loop import TrainerConfig
+    return TrainerConfig(
+        model=get_config(arch).replace(n_layers=layers),
+        train=TrainConfig(lr=1e-3, warmup_steps=1, total_steps=4,
+                          checkpoint_every=0, checkpoint_dir=str(tmp_path)),
+        data=DataConfig(global_batch=2, seq_len=1024))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.1-8b", "deepseek-v3-16b"])
+def test_fsdp_world1_prefetch_equals_gathering_in_place(cuda, monkeypatch,
+                                                       tmp_path, arch):
+    """Full width cut to 2 layers (deepseek: the dense one and a MoE one),
+    bf16 compute, 2 steps over an NCCL group of one: with each layer's
+    gathers issued a layer ahead and its reduce-scatters left in flight
+    (on the parameter group's stream, a copy at world 1), the metrics and
+    the whole state equal gathering in place bit for bit."""
+    tc = _full_width(arch, 2, tmp_path)
+    _assert_same_arms(*_world1_arms(monkeypatch, tc, (True, False)), 2)
+
+
+@pytest.mark.cuda
+def test_fsdp_world1_prefetch_survives_memory_churn(cuda, monkeypatch,
+                                                    tmp_path):
+    """The prefetch path under late collectives and memory churn: every
+    gather and reduce-scatter is issued from a side stream that first
+    spins ~1 ms (NCCL's stream waits for the stream it is issued from, so
+    the collective lands late while the compute stream runs on), and right
+    after each, blocks of every gathered leaf's and reduced gradient's size
+    are allocated on the compute stream and filled with NaN.  A result
+    read before its wait, or a buffer handed back to the allocator before
+    its collective is done, meets NaN or unwritten memory; held and waited
+    for as they must be, the step equals gathering in place (no churn) bit
+    for bit."""
+    from repro_torch.parallel import fsdp as fsdp_mod
+    spin = 2_000_000                  # GPU clock cycles, ~1 ms
+    side = torch.cuda.Stream()
+
+    def late(collective, big):
+        def issue(x, dim, group, async_op=False):
+            here = torch.cuda.current_stream()
+            side.wait_stream(here)
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(spin)
+                out = collective(x, dim, group, async_op=async_op)
+            if not async_op:          # the caller waits for nothing else
+                here.wait_stream(side)
+            junk = [torch.full_like(x, float("nan")) for _ in range(big)]
+            del junk
+            return out
+        return issue
+    tc = _full_width("llama3.1-8b", 3, tmp_path)
+    in_place = _world1_arms(monkeypatch, tc, (False,))[0]
+    monkeypatch.setattr(fsdp_mod, "all_gather_dim",
+                        late(fsdp_mod.all_gather_dim, 2))
+    monkeypatch.setattr(fsdp_mod, "reduce_scatter_dim",
+                        late(fsdp_mod.reduce_scatter_dim, 1))
+    ahead = _world1_arms(monkeypatch, tc, (True,))[0]
+    _assert_same_arms(ahead, in_place, 3)

@@ -31,10 +31,17 @@ axis, on the CPU over gloo.
 * ``launch.train.main`` with ``--model-parallel 2`` under a
   torchrun-shaped environment at world 2: the loss falls by 0.2 in 30
   steps, and rank 0 prints the mesh.
+* On the (2, 2) mesh: FSDP's overlap (the data group's gathers a layer
+  ahead, its reduce-scatters in flight; the model group's collectives
+  where they were) against ``FSDP(prefetch=False)``, llama and MoE with
+  drops, sequence parallel: the metrics and the state after 3 steps equal
+  bit for bit, at most one layer gathered ahead; ``explicit_overlap``
+  trains the default step bit for bit; int8 compression trains, each
+  step's metrics within 2e-5 of one process with it.
 * Without processes: the kv-head mapping of attention over split heads,
   the vocab-parallel lookup, ``act.constrain``'s blocks, and what stays
-  out (serving over ``model``, experts ``model`` does not divide, the
-  ROADMAP.md item-19 options) raising, and no fallback.
+  out (serving over ``model``, experts ``model`` does not divide,
+  ``multi_pod``, the remat policies) raising, and no fallback.
 
 JAX is imported only by the cases that compare with it, so the spawned
 processes, which import this module, start without it.
@@ -117,7 +124,8 @@ def _config(job):
                           grad_clip=1e9,
                           checkpoint_every=job.get("every", 0),
                           checkpoint_dir=str(job["dir"])),
-        parallel=ParallelConfig(sequence_parallel=job.get("sp", True)),
+        parallel=ParallelConfig(sequence_parallel=job.get("sp", True),
+                                **job.get("parallel", {})),
         data=DataConfig(global_batch=8, seq_len=16))
 
 
@@ -140,6 +148,9 @@ def _worker(rank, world, ports, jobs, out):
         if m not in meshes:
             meshes[m] = make_host_mesh(model_parallel=m, device="cpu")
         tr = Trainer(_config(job), device="cpu", mesh=meshes[m])
+        if job.get("prefetch") is False:
+            tr.fsdp = FSDP(tr.model, meshes[m], tr.cfg.parallel, tr.device,
+                           prefetch=False)
         tr.run(1)
         grads = _gathered_grads(tr)
         logs[job["name"]] = tr.run(job["steps"] - 1)    # the whole log
@@ -148,6 +159,7 @@ def _worker(rank, world, ports, jobs, out):
             logs[job["name"] + "/grads"] = grads
         if rank == 0:
             logs[job["name"] + "/mesh"] = dict(tr.fsdp.mesh_shape)
+            logs[job["name"] + "/prefetch"] = dict(tr.fsdp.prefetch_stats)
     for job in jobs:
         if job["name"] != "cli":
             continue
@@ -249,6 +261,9 @@ def worlds(tmp_path_factory):
     jobs[4] += [resume] + [
         {"name": f"jax-{arch}", "arch": arch, "model_parallel": 2,
          "steps": 3, "dir": root / f"jax-{arch}"} for arch in jax_side]
+    for twin, (case, kw) in TWINS.items():
+        base = next(j for j in jobs[4] if j["name"] == case)
+        jobs[4].append(dict(base, name=twin, dir=root / twin, **kw))
     jobs[2].append({"name": "cli", "argv": CLI + [
         "--checkpoint-dir", str(root / "cli"), "--metrics-out",
         str(root / "cli.json")]})
@@ -266,6 +281,7 @@ def _single_trainer(job):
     """The single-process trainer of ``job``'s model after its steps (one
     run per model and step count, shared by the cases)."""
     key = (job["arch"], tuple(sorted(job.get("kw", {}).items())),
+           tuple(sorted(job.get("parallel", {}).items())),
            job["steps"], job.get("every", 0), str(job["dir"])
            if job.get("every") else "")
     if key not in _SINGLE:
@@ -289,6 +305,19 @@ def _close(got, want, what):
 
 
 CASES = [_name(*c) for c in GRID] + ["2x4"]
+# twins of (2, 2) cases: name -> (the case, what the twin changes):
+# gathering in place (FSDP(prefetch=False)), and the ParallelConfig options
+# the port now carries
+LLAMA_2X2, MOE_2X2 = _name((2, 2), "llama", True), _name((2, 2),
+                                                          "moe_drops", True)
+TWINS = {
+    LLAMA_2X2 + "-in-place": (LLAMA_2X2, {"prefetch": False}),
+    MOE_2X2 + "-in-place": (MOE_2X2, {"prefetch": False}),
+    LLAMA_2X2 + "-explicit-overlap": (
+        LLAMA_2X2, {"parallel": {"explicit_overlap": True}}),
+    LLAMA_2X2 + "-int8": (LLAMA_2X2,
+                          {"parallel": {"grad_compression": "int8"}}),
+}
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -449,6 +478,62 @@ def test_entry_point_trains_tensor_parallel(worlds):
     assert log[-1]["loss"] < log[0]["loss"] - 0.2
 
 
+def _checkpoint_arrays(job):
+    with np.load(os.path.join(str(job["dir"]), "step_00000003",
+                              "shard_0.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _same_run(logs, jobs, a, b):
+    """Two jobs' metrics, first-step gradients and state after 3 steps
+    (every leaf) equal bit for bit."""
+    assert logs[a] == logs[b]
+    assert logs[a + "/grads"].keys() == logs[b + "/grads"].keys()
+    for key, g in logs[a + "/grads"].items():
+        assert torch.equal(g, logs[b + "/grads"][key]), key
+    left, right = _checkpoint_arrays(jobs[a]), _checkpoint_arrays(jobs[b])
+    assert left.keys() == right.keys()
+    for key, v in left.items():
+        np.testing.assert_array_equal(v, right[key], err_msg=key)
+
+
+@pytest.mark.parametrize("case", [LLAMA_2X2, MOE_2X2])
+def test_prefetch_equals_gathering_in_place_on_2x2(worlds, case):
+    """On the (2, 2) mesh the data group's gathers run a layer ahead and
+    its reduce-scatters in flight, the model group's sequence collectives
+    where they were: the same sums in the same order as gathering in place
+    (FSDP(prefetch=False)), so the metrics, the first step's gradients and
+    the state after 3 steps equal bit for bit; 2(L - 1) layers gathered
+    ahead a step, never more than one at a time."""
+    logs, jobs = worlds[4]
+    twin = case + "-in-place"
+    _same_run(logs, jobs, case, twin)
+    L = _model_config(jobs[case]["arch"]).n_layers
+    assert logs[case + "/prefetch"] == {"layers": 2 * (L - 1),
+                                        "most_ahead": 1}
+    assert logs[twin + "/prefetch"] == {"layers": 0, "most_ahead": 0}
+
+
+@pytest.mark.parametrize("option", ["explicit_overlap", "grad_compression"])
+def test_carried_options_on_2x2(worlds, option, tmp_path):
+    """On the (2, 2) mesh: ``explicit_overlap`` (read nowhere, as in JAX)
+    trains the default step bit for bit; int8 compression trains, each
+    step's metrics within TOL of one process with it, the error tree in
+    the checkpoint under JAX's keys and finite."""
+    logs, jobs = worlds[4]
+    if option == "explicit_overlap":
+        _same_run(logs, jobs, LLAMA_2X2, LLAMA_2X2 + "-explicit-overlap")
+        return
+    job = jobs[LLAMA_2X2 + "-int8"]
+    _close(logs[job["name"]], _reference(job, tmp_path).metrics_log,
+           job["name"])
+    err = {k: v for k, v in _checkpoint_arrays(job).items()
+           if k.startswith("err|")}
+    assert {"err|embed", "err|g0|attn|wq"} <= set(err)
+    assert all(np.isfinite(v).all() for v in err.values())
+    assert any(v.any() for v in err.values())
+
+
 # --------------------------------------------------------------------------- #
 # Pieces, without processes
 # --------------------------------------------------------------------------- #
@@ -579,11 +664,8 @@ STAYS_OUT = {
     "cache_shardings": (_raises_cache_shardings, "item 8c"),
     "tp_experts": (_raises_tp_experts, "item 13b"),
     "ffn_not_divided": (_raises_ffn_not_divided, "item 13b"),
-    "multi_pod": (_raises_extra({"multi_pod": True}), "item 19"),
-    "explicit_overlap": (_raises_extra({"explicit_overlap": True}),
-                         "item 19"),
-    "grad_compression": (_raises_extra({"grad_compression": "int8"}),
-                         "item 19"),
+    "multi_pod": (_raises_extra({"multi_pod": True}), "item 19b"),
+    "remat_dots": (_raises_extra({"remat_policy": "dots"}), "item 8d"),
 }
 
 
