@@ -2,6 +2,8 @@
 
   python3 chip_smoke.py              # from the root of a checkout, one card
   python3 chip_smoke.py --host-only  # phase 1, then host us per call only
+  python3 chip_smoke.py --adamw-ab   # phase 1, then phases 5 and 5c with
+                                     # AdamW in blocks vs whole leaves
 
 Phases, each of which fails the run (non-zero exit) if it goes wrong:
 
@@ -25,6 +27,17 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    every RMSNorm launch the vector path, every WKV6 launch the split path),
    then timed (host clock) and profiled (device time by kernel, busy
    share);
+3m. mistral-7b (the paper's second workload, a sliding window of 4,096)
+   served past its window, full width and depth: batch 4, prompt 4,608
+   (the prompt itself wraps the KV cache's ring of 4,096 slots), 32
+   greedy tokens, as phase 3; then a 2-layer cut, kernel path against
+   plain path: the prefill's logits and ring, and 32 decode steps through
+   the ring (each step's logits; the greedy tokens the same but at near
+   ties);
+3d. deepseek-7b (MHA), qwen2.5-32b (QKV bias, groups of 5, ~65.5 GB of
+   bf16 weights on the one card) and nemotron-4-15b (LayerNorm, which
+   launches no RMSNorm kernel; squared ReLU; groups of 6; a vocabulary of
+   256,000) served as phase 3;
 4. the kernel path against the plain path at full width: a 2-layer llama
    prefill; deepseek's MoE block alone on one bf16 input; a 2-layer (one
    dense, one MoE) deepseek prefill; a 2-layer rwkv6-3b prefill and decode
@@ -38,6 +51,13 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    tokens/s, peak memory, device-busy share; a checkpoint round trip of a
    reduced model on the card; then the loss and every gradient of a 2-layer
    full-width cut, kernel path against plain path;
+5m. mistral-7b training: full width cut to 12 of its 32 layers, B 1 x S
+   8192, so that the window of 4,096 binds (about 3/4 of the causal pairs
+   visible), as phase 5 (10 steps, the gpu-red hook), then the 2-layer
+   cut at B 1 x S 8192, kernel path against plain path;
+5x. a training smoke of deepseek-7b, qwen2.5-32b and nemotron-4-15b:
+   full width, 2 layers, B 1 x S 4096, 3 steps as phase 5, then the loss
+   and gradients of the kernel path against the plain path;
 5c. MoE training: full-width deepseek-v3-16b cut to 5 of its 28 layers
    (layer 0 dense, 4 MoE), as phase 5, with the grouped GEMM's forward,
    dgrad and wgrad launches counted too and every expert's gradient slice
@@ -97,7 +117,15 @@ for bf16 that TMA can read and "simt" for the rest) against their plain
 versions and against autograd of the plain forward; at flash's and the
 grouped GEMM's training shapes it also checks that the wgmma kernels give
 the same bits twice (and at flash's holds the kept simt kernels to the
-plain backward).
+plain backward); groups of 5 and 6 at D 128 both ways; and the windowed
+forward and backward at phase 5m's attention (B 1, S 8192, 32/8 heads, D
+128, window 4096) against their plain versions, timed against their bound
+and against flex_attention (compiled, with a sliding-window BlockMask)
+and F.scaled_dot_product_attention with the window as a boolean mask
+(rows "flash_attention_window" and "flash_attention_bwd_window" of the
+kernels line, whose launches are those of phases 3m and 5m); these two
+are also held row by row, where the same kernels with the window moved by
+a 64-key tile must fail.
 
 It needs ``src/repro_torch`` beside it, and CUDA; without either it exits
 non-zero and prints no result.
@@ -154,6 +182,7 @@ from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.serve.decode import ServeConfig, ServingLoop  # noqa: E402
 from repro_torch.train.checkpoint import flatten_with_paths  # noqa: E402
 from repro_torch.train.data import DataConfig, SyntheticTokens  # noqa: E402
+from repro_torch.train import optimizer  # noqa: E402
 from repro_torch.train.train_loop import (LitSiliconHook, Trainer,  # noqa: E402
                                           TrainerConfig)
 
@@ -202,6 +231,38 @@ TRAIN = dict(arch="llama3.1-8b", layers=8, batch=2, seq=4096, steps=10,
 # (layer 0 dense, 4 MoE: 2.855 B fp32 params, about phase 5's), B 2 x S 4096
 TRAIN_MOE = dict(arch="deepseek-v3-16b", layers=5, batch=2, seq=4096,
                  steps=10, lr=1e-3)
+# phase 5m: mistral-7b, the paper's second workload (Table II), full width
+# cut to 12 of 32 layers (2.879 B fp32 params, about phase 5's), B 1 x S
+# 8192, so that its 4,096-token sliding window binds in every layer
+TRAIN_MISTRAL = dict(arch="mistral-7b", layers=12, batch=1, seq=8192,
+                     steps=10, lr=1e-3)
+# phase 5x: a training smoke of each other dense arch of the registry, full
+# width, 2 layers, B 1 x S 4096, 3 steps
+TRAIN_DENSE = [dict(arch=a, layers=2, batch=1, seq=4096, steps=3, lr=1e-3)
+               for a in ("deepseek-7b", "qwen2.5-32b", "nemotron-4-15b")]
+# phase 3m: mistral-7b served past its window: a prompt of 4,608 tokens,
+# longer than the 4,096-token window, so the prompt itself wraps the ring
+MISTRAL_PROMPT = 4608
+# phase 3d: the other dense archs, served at phase 3's settings
+SERVED_DENSE = ("deepseek-7b", "qwen2.5-32b", "nemotron-4-15b")
+# the runs whose every flash launch applies a window that binds (mistral's
+# 4,096 over 4,608 and 8,192 positions): the windowed rows of the kernels
+# line count their launches
+WINDOWED_RUNS = ("mistral-7b", "mistral-7b train")
+# phase 2's windowed flash rows: phase 5m's attention, B 1, S 8192, 32/8
+# heads, D 128, bf16, causal with the window 4096
+WINDOW_SHAPE = dict(B=1, S=8192, H=32, kvH=8, D=128, window=4096)
+# ... held row by row as well (each head's D values at one position): the
+# largest |kernel - plain| / |plain| of a row.  The max-abs TOL alone cannot
+# tell the window's edge moved by a 64-key tile (about 1e-2 at the worst of
+# 33 M outputs) from bf16 rounding (3.9e-3).  By rows, rounding stays near
+# 2**-8 (the two sides round each value once, and P once), while a tile
+# more or less moves a row whose window binds by about 64/4096 of its mass
+# times |v| over |o| (sqrt(4096 / 64)): ~0.1.  The controls, the same
+# kernels with the window WINDOW_SHIFT keys narrower and wider, held against
+# the plain version at the true window, must fail this limit.
+WINDOW_ROW_TOL = 2e-2
+WINDOW_SHIFT = 64
 # phase 5b's MoE run at a world of 1: its losses equal phase 5c's first
 # steps bit for bit (at a world of 1 the MoE layers route as one device)
 FSDP_MOE_STEPS_WORLD1 = 4
@@ -442,6 +503,9 @@ def flash_checks(g) -> dict:
         (2, 65, 193, 8, 2, 128, torch.bfloat16, True, 0, 128, False),
         (2, 130, 130, 4, 4, 128, torch.bfloat16, False, 0, 0, True),
         (1, 777, 777, 8, 1, 128, torch.bfloat16, True, 0, 0, False),
+        # qwen2.5-32b's group of 5, nemotron-4-15b's of 6
+        (1, 300, 300, 40, 8, 128, torch.bfloat16, True, 0, 0, False),
+        (1, 300, 300, 48, 8, 128, torch.bfloat16, True, 64, 0, False),
     ]
     for B, Sq, Sk, H, kvH, D, dt, causal, window, off, use_mask in cases:
         q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
@@ -816,6 +880,16 @@ def wkv6_checks(g) -> dict:
     return row
 
 
+def row_err(a, b) -> float:
+    """The largest over rows (the last axis) of |a - b| over the larger of
+    |b| and the RMS of b's row norms: a row that is zero by construction
+    (dq where a query sees a single key) holds only rounding noise."""
+    a, b = a.float(), b.float()
+    norms = b.norm(dim=-1)
+    floor = float(norms.square().mean().sqrt())
+    return float(((a - b).norm(dim=-1) / norms.clamp_min(floor)).max())
+
+
 def rel_err(a, b) -> float:
     """max |a - b| over max |b|."""
     return float((a.float() - b.float()).abs().max()) / max(
@@ -857,6 +931,8 @@ def flash_bwd_checks(g) -> dict:
         (1, 96, 96, 8, 1, 32, torch.bfloat16, False, 40, 0),
         (2, 77, 77, 8, 1, 16, torch.bfloat16, True, 16, 0),
         (2, 257, 257, 32, 8, 128, torch.bfloat16, True, 0, 0),
+        (1, 300, 300, 40, 8, 128, torch.bfloat16, True, 0, 0),     # group 5
+        (1, 300, 300, 48, 8, 128, torch.bfloat16, True, 64, 0),    # group 6
     ]
     for B, Sq, Sk, H, kvH, D, dt, causal, window, off in cases:
         q, do = (torch.randn(B, Sq, H, D, generator=g, device=dev).to(dt)
@@ -931,14 +1007,160 @@ def flash_bwd_checks(g) -> dict:
                 bound_by=b_by, library_ms=lib_ms, simt_ms=simt_ms)
 
 
-def sdpa_backward(q, k, v, do):
-    """One autograd backward of F.scaled_dot_product_attention (causal, GQA)
-    on q, k, v (B, S, H, D): the library's yardstick for flash's backward."""
+def library_backward(fn, q, k, v, do):
+    """One autograd backward of ``fn`` (a library's attention on q, k, v
+    transposed to (B, H, S, D)) for q, k, v, dO (B, S, H, D)."""
     leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                         enable_gqa=True)
+    out = fn(*leaves)
     dot = do.transpose(1, 2)
     return lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True)
+
+
+def sdpa_backward(q, k, v, do, mask=None):
+    """One autograd backward of F.scaled_dot_product_attention (causal, or
+    the boolean ``mask`` where given; GQA): the library's yardstick for
+    flash's backward."""
+    return library_backward(lambda *t: F.scaled_dot_product_attention(
+        *t, is_causal=mask is None, attn_mask=mask, enable_gqa=True),
+        q, k, v, do)
+
+
+def flex_window(S: int, window: int):
+    """torch's flex_attention, compiled, with a causal sliding-window
+    BlockMask over S positions: a library call that skips the tiles outside
+    the window, as the kernels do (sdpa with a boolean mask computes every
+    pair).  It takes q, k, v as (B, H, S, D), GQA.  Inductor's and Triton's
+    caches go under build/ beside this script."""
+    here = Path(__file__).resolve().parent / "build"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(here / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(here / "triton"))
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def sliding(b, h, qi, ki):
+        return (ki <= qi) & (qi - ki < window)
+    block = create_block_mask(sliding, None, None, S, S, device="cuda")
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda q, k, v: fn(q, k, v, block_mask=block, enable_gqa=True)
+
+
+def window_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal window lets through over S positions:
+    each query sees itself and up to window - 1 keys before it."""
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def window_flash_checks(g) -> list:
+    """The windowed flash forward and backward (the TPU's ``_fa_kernel``
+    with its window) at phase 5m's attention, B 1, S 8192, 32/8 heads, D
+    128, bf16, causal with the window 4096, which binds there: each against
+    its plain version, by its largest error and row by row
+    (WINDOW_ROW_TOL), where the same kernel with the window moved by a
+    tile either way must fail; then the kernel's, the plain version's and
+    the libraries' times (flex_attention with a sliding-window BlockMask,
+    the row's ``library_ms``, and F.scaled_dot_product_attention with the
+    window as a boolean mask, ``sdpa_mask_ms``; forward and autograd
+    backward) against the bound of the pairs the window lets through."""
+    dev, dt = "cuda", torch.bfloat16
+    B, S, H, kvH, D, W = (WINDOW_SHAPE[k] for k in ("B", "S", "H", "kvH",
+                                                     "D", "window"))
+    kw = dict(causal=True, window=W)
+    shifts = (-WINDOW_SHIFT, WINDOW_SHIFT)
+    log(f"windowed flash attention at B{B} S{S} H{H}/{kvH} D{D} bf16 causal "
+        f"window {W} (kernel vs plain):")
+    q, do = (torch.randn(B, S, H, D, generator=g, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, kvH, D, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    (o, lse), path = took(flash_attention_fwd, lambda: flash_attention_fwd(
+        q, k, v, **kw, return_lse=True))
+    ref = flash_attention_ref(q, k, v, **kw)
+    err = max_err(o, ref)
+    check(f"forward [{path}]", err, TOL[dt])
+    rows = row_err(o, ref)
+    moved = {W + d: row_err(flash_attention_fwd(q, k, v, causal=True,
+                                                window=W + d), ref)
+             for d in shifts}
+    del ref
+    log(f"  forward by rows: max |o - plain| / |plain| {rows:.3e} (tol "
+        f"{WINDOW_ROW_TOL:g}); the kernel at windows {list(moved)} against "
+        f"the plain version at {W} (controls, must exceed the tol): "
+        f"{ {w: f'{e:.3e}' for w, e in moved.items()} }")
+    grads, bpath = took(flash_attention_bwd, lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, **kw))
+    plain = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    berr = max(rel_err(a, b) for a, b in zip(grads, plain))
+    brows = max(row_err(a, b) for a, b in zip(grads, plain))
+    bmoved = {W + d: max(row_err(a, b) for a, b in zip(flash_attention_bwd(
+        q, k, v, o, lse, do, causal=True, window=W + d), plain))
+        for d in shifts}
+    log(f"  backward [{bpath}]: max rel_err {berr:.3e} against the plain "
+        f"backward (tol {BWD_TOL[dt]:g}); by rows of dq, dk, dv {brows:.3e} "
+        f"(tol {WINDOW_ROW_TOL:g}); at windows {list(bmoved)} (controls): "
+        f"{ {w: f'{e:.3e}' for w, e in bmoved.items()} }")
+    if path != "wgmma" or bpath != "wgmma" or berr > BWD_TOL[dt] \
+            or max(rows, brows) > WINDOW_ROW_TOL:
+        raise AssertionError("windowed flash attention")
+    if min(*moved.values(), *bmoved.values()) <= WINDOW_ROW_TOL:
+        raise AssertionError("windowed flash attention: a window moved by "
+                             f"{WINDOW_SHIFT} keys passes the row check")
+    del plain, grads
+    mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril_()
+    mask &= ~torch.ones(S, S, dtype=torch.bool, device=dev).tril_(-W)
+    pairs = window_pairs(S, W)
+    if int(mask.sum()) != pairs:
+        raise AssertionError("the window's mask")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flex = flex_window(S, W)
+    lib_err = max_err(flex(qt, kt, vt).transpose(1, 2), o)
+    sdpa_err = max_err(F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2), o)
+    ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters=10)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), iters=3,
+                       warmup=1)
+    lib_ms = cuda_ms(lambda: flex(qt, kt, vt), iters=10)
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=10)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())    # q,k,v in, o out
+    b_ms, b_by = bound(nbytes, 4 * B * H * D * pairs, dt)
+    log(f"  forward: kernel {ms:.4f} ms ({ms / b_ms:.2f}x its bound, "
+        f"{ms / lib_ms:.2f}x flex_attention with the window's BlockMask, "
+        f"{ms / sdpa_ms:.2f}x sdpa with the mask; max_abs_err vs the kernel: "
+        f"flex {lib_err:.3e}, sdpa {sdpa_err:.3e}), plain {plain_ms:.4f} "
+        f"ms, flex {lib_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound "
+        f"{b_ms * 1e3:.1f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
+        f"{4 * B * H * D * pairs / 1e9:.1f} GFLOP, {pairs} pairs); {CARD}")
+    bms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                  iters=5)
+    bplain_ms = cuda_ms(lambda: flash_attention_bwd_ref(
+        q, k, v, o, lse, do, **kw), iters=2, warmup=1)
+    blib_ms = cuda_ms(library_backward(flex, q, k, v, do), iters=5)
+    bsdpa_ms = cuda_ms(sdpa_backward(q, k, v, do, mask), iters=5)
+    bbytes = 2 * (3 * q.numel() + 4 * k.numel()) + lse.numel() * 4
+    bb_ms, bb_by = bound(bbytes, 10 * B * H * D * pairs, dt)
+    log(f"  backward: kernel {bms:.3f} ms ({bms / bb_ms:.2f}x its bound, "
+        f"{bms / blib_ms:.2f}x flex_attention's backward, "
+        f"{bms / bsdpa_ms:.2f}x sdpa's backward with the mask), plain "
+        f"{bplain_ms:.3f} ms, flex backward {blib_ms:.3f} ms, sdpa backward "
+        f"{bsdpa_ms:.3f} ms, bound {bb_ms * 1e3:.1f} us ({bb_by}: "
+        f"{bbytes / 1e6:.1f} MB, {10 * B * H * D * pairs / 1e9:.1f} GFLOP); "
+        f"{CARD}")
+    library = "flex_attention, compiled, sliding-window BlockMask"
+    return [dict(name="flash_attention_window", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention/kernel.py:25",
+                 max_abs_err=err, max_row_rel_err=rows,
+                 shifted_row_rel_err=moved, ms=ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                 library=library, sdpa_mask_ms=sdpa_ms),
+            dict(name="flash_attention_bwd_window", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 replaces="src/repro/models/attention.py:152",
+                 replaces_note="no TPU kernel: XLA autodiff of sdpa_flash",
+                 max_abs_err=berr, max_row_rel_err=brows,
+                 shifted_row_rel_err=bmoved, ms=bms, plain_ms=bplain_ms,
+                 bound_ms=bb_ms, bound_by=bb_by, library_ms=blib_ms,
+                 library=library, sdpa_mask_ms=bsdpa_ms)]
 
 
 def rms_norm_backward(x, w, dy):
@@ -1099,6 +1321,15 @@ def moe_gemm_bwd_checks(g) -> list:
 # --------------------------------------------------------------------------- #
 # Phase 3: serve llama3.1-8b, deepseek-v3-16b and rwkv6-3b
 # --------------------------------------------------------------------------- #
+def rmsnorms(cfg) -> tuple:
+    """(RMSNorm kernel launches a layer, and after the layers) in one
+    forward: ln1, ln2 (and q, k with qk-norm), the final norm; a LayerNorm
+    model (nemotron-4-15b) norms in plain torch and launches none."""
+    if cfg.norm == "layernorm":
+        return 0, 0
+    return (4 if cfg.qk_norm else 2), 1
+
+
 def expected_launches(cfg, new_tokens: int) -> dict:
     """Launches of each kernel in one served run: prefill + new_tokens - 1
     decode steps, new_tokens forwards in all."""
@@ -1110,15 +1341,20 @@ def expected_launches(cfg, new_tokens: int) -> dict:
                 "rmsnorm_fwd": (2 * cfg.n_layers + 2) * new_tokens,
                 "moe_gemm_fwd": 0,
                 "wkv6_fwd": cfg.n_layers * new_tokens, **no_backward}
+    per_layer, final = rmsnorms(cfg)
     return {"flash_attention_fwd": cfg.n_layers,         # prefill only
-            "rmsnorm_fwd": (2 * cfg.n_layers + 1) * new_tokens,
+            "rmsnorm_fwd": (per_layer * cfg.n_layers + final) * new_tokens,
             "moe_gemm_fwd": 3 * n_moe * new_tokens,
             "wkv6_fwd": 0, **no_backward}
 
 
-def serve(args, arch: str) -> dict:
+def serve(args, arch: str, prompt_len: int = 0) -> dict:
+    """Serve ``arch`` at full width and depth (phase 3; prompts of
+    ``prompt_len`` tokens, args.prompt_len by default): the launches of the
+    run counted and checked, then timed and profiled."""
     cfg = get_config(arch)
-    model = build_model(cfg, max_cache_len=args.prompt_len + args.new_tokens)
+    S = prompt_len or args.prompt_len
+    model = build_model(cfg, max_cache_len=S + args.new_tokens)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1132,13 +1368,19 @@ def serve(args, arch: str) -> dict:
     rwkv = (f"; RWKV6: WKV heads of {cfg.rwkv.head_dim}, decay lora "
             f"{cfg.rwkv.decay_lora}, mix lora {cfg.rwkv.mix_lora}, no "
             f"attention" if cfg.rwkv else "")
+    ring = (f"; a sliding window of {cfg.window}, the KV cache a ring of "
+            f"{model.cache_window} slots for {S + args.new_tokens} "
+            f"positions" if getattr(model, "ring", False) else "")
     log(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
         f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}{moe}{rwkv}; weights {n_bytes / 1e9:.2f} GB made on the "
-        f"card in {time.perf_counter() - t0:.1f} s")
+        f"{cfg.vocab_size}, {cfg.norm}, {cfg.activation}"
+        f"{', QKV bias' if cfg.qkv_bias else ''}{moe}{rwkv}{ring}; weights "
+        f"{n_bytes / 1e9:.2f} GB made on the card in "
+        f"{time.perf_counter() - t0:.1f} s (peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB while made)")
     prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
-    loop = ServingLoop(model, params, args.batch, args.prompt_len,
+        0, cfg.vocab_size, (args.batch, S)).astype(np.int32)
+    loop = ServingLoop(model, params, args.batch, S,
                        ServeConfig(max_new_tokens=args.new_tokens),
                        device="cuda")
 
@@ -1194,7 +1436,7 @@ def serve(args, arch: str) -> dict:
             raise AssertionError("non-finite decode logits")
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"{arch}: prefill {prefill_ms:.2f} ms (B {args.batch} x S "
-        f"{args.prompt_len}); decode {decode_ms:.2f} ms/token step = "
+        f"{S}); decode {decode_ms:.2f} ms/token step = "
         f"{args.batch * 1e3 / decode_ms:.1f} tokens/s; served "
         f"{args.batch * args.new_tokens / wall:.1f} tokens/s end to end; "
         f"peak memory {peak:.2f} GB; {CARD}")
@@ -1348,28 +1590,63 @@ def recorded_routes():
         yield routes
 
 
-def kernel_vs_plain(args) -> None:
-    cfg = get_config("llama3.1-8b").replace(n_layers=2)
-    model = build_model(cfg, max_cache_len=args.prompt_len)
+def kernel_vs_plain(args, arch: str = "llama3.1-8b", prompt_len: int = 0,
+                    steps: int = 0) -> None:
+    """A 2-layer full-width prefill of ``arch`` (prompts of ``prompt_len``,
+    args.prompt_len by default), kernel path against plain path: the
+    logits and the KV cache; then ``steps`` greedy decode steps (phase 3m:
+    mistral-7b past its window, through the ring), both paths fed the
+    kernel path's tokens so that their caches hold the same positions: each
+    step's logits, and each greedy token the same on both paths unless the
+    plain path's own margin to the kernel path's token is within the
+    logits' tolerance (a near tie that the paths' roundings may order
+    either way)."""
+    cfg = get_config(arch).replace(n_layers=2)
+    S = prompt_len or args.prompt_len
+    model = build_model(cfg, max_cache_len=S + steps)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     params = model.init_params(gen, "cuda")
     tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len))).long().cuda()
+        0, cfg.vocab_size, (args.batch, S))).long().cuda()
+    V = cfg.vocab_size
     with torch.inference_mode():
         lk, ck = model.prefill(params, {"tokens": tokens})
         with plain_path():
             lp, cp = model.prefill(params, {"tokens": tokens})
-    V = cfg.vocab_size
-    diff = (lk[..., :V].float() - lp[..., :V].float()).abs()
-    cache_diff = max(max_err(a, b) for a, b in zip(ck["k"] + ck["v"],
-                                                   cp["k"] + cp["v"]))
-    log(f"2-layer full-width prefill, kernel vs plain path: logits max_abs "
-        f"{float(diff.max()):.3e} mean_abs {float(diff.mean()):.3e} (tol "
-        f"{E2E_TOL}), logit std {float(lp[..., :V].float().std()):.3f}; "
-        f"KV cache max_abs {cache_diff:.3e}")
-    if float(diff.max()) > E2E_TOL["max_abs"] or \
-            float(diff.mean()) > E2E_TOL["mean_abs"]:
-        raise AssertionError("kernel path and plain path disagree")
+        diff = (lk[..., :V].float() - lp[..., :V].float()).abs()
+        cache_diff = max(max_err(a, b) for a, b in zip(ck["k"] + ck["v"],
+                                                       cp["k"] + cp["v"]))
+        worst, same, ties = [float(diff.max()), float(diff.mean())], 0, 0
+        for _ in range(steps):
+            tok = lk[:, -1, :V].argmax(-1, keepdim=True)
+            plain_tok = lp[:, -1, :V].argmax(-1, keepdim=True)
+            margin = (lp[:, -1, :V].gather(-1, plain_tok)
+                      - lp[:, -1, :V].gather(-1, tok)).flatten()
+            agree = (tok == plain_tok).flatten()
+            same += int(agree.sum())
+            ties += int((~agree & (margin <= E2E_TOL["max_abs"])).sum())
+            if not bool((agree | (margin <= E2E_TOL["max_abs"])).all()):
+                raise AssertionError(f"{arch}: greedy tokens differ beyond a "
+                                     f"near tie (plain margins {margin})")
+            lk, ck = model.decode_step(params, tok, ck)
+            with plain_path():
+                lp, cp = model.decode_step(params, tok, cp)
+            d = (lk[..., :V].float() - lp[..., :V].float()).abs()
+            worst = [max(worst[0], float(d.max())),
+                     max(worst[1], float(d.mean()))]
+    ring = (f"; the cache a ring of {model.cache_window} slots"
+            if getattr(model, "ring", False) else "")
+    log(f"2-layer full-width {arch} prefill (B {args.batch} x S {S}"
+        f"{f', then {steps} decode steps' if steps else ''}{ring}), kernel vs "
+        f"plain path: logits max_abs {worst[0]:.3e} mean_abs {worst[1]:.3e} "
+        f"(tol {E2E_TOL}), logit std {float(lp[..., :V].float().std()):.3f}; "
+        f"prefill KV cache max_abs {cache_diff:.3e}"
+        + (f"; greedy tokens the same in {same} of {steps * args.batch} "
+           f"({ties} near ties)" if steps else ""))
+    if worst[0] > E2E_TOL["max_abs"] or worst[1] > E2E_TOL["mean_abs"]:
+        raise AssertionError(f"{arch}: kernel path and plain path disagree")
+    del params, ck, cp
+    torch.cuda.empty_cache()
 
 
 def moe_kernel_vs_plain(args) -> None:
@@ -1480,15 +1757,16 @@ def expected_train_launches(cfg, steps: int) -> dict:
     under an activation checkpoint, so its flash attention, norms and
     grouped GEMMs (3 a MoE layer) run forward twice (the forward, the
     recompute in the backward) and backward once (each GEMM one dgrad and
-    one wgrad); the final norm once each way."""
+    one wgrad); the final norm once each way.  A LayerNorm model
+    (nemotron-4-15b) launches no RMSNorm kernel."""
     L = cfg.n_layers
-    norms = 4 if cfg.qk_norm else 2                     # ln1, ln2 (q, k)
+    norms, final = rmsnorms(cfg)        # ln1, ln2 (q, k); none if LayerNorm
     gemms = 3 * (L - cfg.moe.first_k_dense) if cfg.moe else 0
     return {"flash_attention_fwd": 2 * L * steps,
-            "rmsnorm_fwd": (2 * norms * L + 1) * steps,
+            "rmsnorm_fwd": (2 * norms * L + final) * steps,
             "moe_gemm_fwd": 2 * gemms * steps, "wkv6_fwd": 0,
             "flash_attention_bwd": L * steps,
-            "rmsnorm_bwd": (norms * L + 1) * steps,
+            "rmsnorm_bwd": (norms * L + final) * steps,
             "moe_gemm_dgrad": gemms * steps, "moe_gemm_wgrad": gemms * steps}
 
 
@@ -1586,9 +1864,13 @@ def train(args, setup=TRAIN) -> tuple:
            f"{cfg.moe.n_experts} experts of {cfg.moe.d_expert}, top-"
            f"{cfg.moe.top_k} {cfg.moe.router}, {cfg.moe.n_shared} shared, "
            f"capacity {moe_mod.capacity(cfg, B * S)}" if cfg.moe else "")
+    win = (f"; sliding window {cfg.window}: "
+           f"{window_pairs(S, cfg.window) / (S * (S + 1) / 2):.1%} of the "
+           f"causal pairs visible" if cfg.window else "")
     log(f"train {cfg.name} cut to {cfg.n_layers} of {full.n_layers} layers: "
         f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}{moe}; {n_params / 1e9:.3f} B "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.norm}, {cfg.activation}"
+        f"{moe}{win}; {n_params / 1e9:.3f} B "
         f"fp32 params + 2 fp32 moments made on the card in "
         f"{time.perf_counter() - t0:.1f} s; B {B} x S {S}, bf16 compute, "
         f"AdamW lr {setup['lr']}, gpu-red hook")
@@ -1647,6 +1929,23 @@ def train(args, setup=TRAIN) -> tuple:
     if setup is TRAIN:
         checkpoint_round_trip(ck / "reduced")
     return launches, by_path, losses
+
+
+def adamw_blocks_ab(args) -> None:
+    """Phases 5 and 5c with ``adamw_update`` walking each leaf in blocks of
+    ``optimizer.PIECE`` elements (the default) and over whole leaves (PIECE
+    past every leaf), in the order blocks, whole, whole, blocks: each run's
+    ms/step, busy share and peak are train()'s lines."""
+    piece = optimizer.PIECE
+    try:
+        for setup in (TRAIN, TRAIN_MOE):
+            for arm in ("blocks", "whole", "whole", "blocks"):
+                optimizer.PIECE = piece if arm == "blocks" else 1 << 62
+                log(f"AdamW A/B, {setup['arch']}: {arm} (PIECE "
+                    f"{optimizer.PIECE})")
+                train(args, setup)
+    finally:
+        optimizer.PIECE = piece
 
 
 def checkpoint_round_trip(directory: Path) -> None:
@@ -2286,6 +2585,9 @@ def main(argv=None) -> int:
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--host-only", action="store_true",
                     help="phase 1 and the host cost per call only")
+    ap.add_argument("--adamw-ab", action="store_true",
+                    help="phase 1, then phases 5 and 5c with AdamW in "
+                         "blocks and over whole leaves, alternated")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2299,9 +2601,12 @@ def main(argv=None) -> int:
     if args.host_only:
         print(json.dumps({"host_us": host_costs(g)}), flush=True)
         return 0
+    if args.adamw_ab:
+        adamw_blocks_ab(args)
+        return 0
     rows = [flash_checks(g), rmsnorm_checks(g), moe_gemm_checks(g),
             wkv6_checks(g), flash_bwd_checks(g), rmsnorm_bwd_checks(g),
-            *moe_gemm_bwd_checks(g)]
+            *moe_gemm_bwd_checks(g), *window_flash_checks(g)]
     costs = host_costs(g)
     for row in rows:
         row.update(costs.get(row["name"], {}))
@@ -2312,12 +2617,21 @@ def main(argv=None) -> int:
     moe_kernel_vs_plain(args)
     by_run["rwkv6-3b"] = serve(args, "rwkv6-3b")
     rwkv_kernel_vs_plain(args)
+    by_run["mistral-7b"] = serve(args, "mistral-7b", MISTRAL_PROMPT)  # 3m
+    kernel_vs_plain(args, "mistral-7b", MISTRAL_PROMPT, args.new_tokens)
+    for arch in SERVED_DENSE:                                       # 3d
+        by_run[arch] = serve(args, arch)
     torch.cuda.empty_cache()
     losses = {}
     for setup in (TRAIN, TRAIN_MOE):                     # phases 5 and 5c
         launches, by_path, losses[setup["arch"]] = train(args, setup)
         by_run[f"{setup['arch']} train"] = (launches, by_path)
         train_kernel_vs_plain(args, setup["arch"])
+    for setup in (TRAIN_MISTRAL, *TRAIN_DENSE):          # phases 5m and 5x
+        launches, by_path, _ = train(args, setup)
+        by_run[f"{setup['arch']} train"] = (launches, by_path)
+        train_kernel_vs_plain(args, setup["arch"], setup["batch"],
+                              setup["seq"])
     runs, fsdp_losses = fsdp_train(args, losses)
     by_run.update(runs)
     by_run.update(int8_train(args))                           # phase 5e
@@ -2325,15 +2639,27 @@ def main(argv=None) -> int:
     by_name = {row["name"]: row for row in rows}
     device_times(g, by_name)
     backward_device_times(g, by_name)
+    # each row's kernel wrapper, and the runs whose launches it counts (the
+    # windowed rows: those of the runs whose every flash launch is windowed)
+    counted = {"flash_attention_window": (fa_ops.flash_attention_fwd,
+                                          WINDOWED_RUNS),
+               "flash_attention_bwd_window": (fa_ops.flash_attention_bwd,
+                                              WINDOWED_RUNS)}
     for row, fn in zip(rows, KERNELS):
+        counted[row["name"]] = (fn, tuple(by_run))
+    for row in rows:
+        fn, names = counted[row["name"]]
         name = fn.__name__
-        counts = {arch: n[name] for arch, (n, _) in by_run.items()}
+        counts = {run: by_run[run][0][name] for run in names}
         row["launches"] = sum(counts.values())
         row["launches_by_run"] = counts
         if hasattr(fn, "launches_by_path"):
             row["launches_by_path"] = {
-                path: sum(p[name][path] for _, p in by_run.values())
+                path: sum(by_run[run][1][name][path] for run in names)
                 for path in fn.launches_by_path}
+    for name in counted:
+        if by_name[name]["launches"] == 0:
+            raise AssertionError(f"{name}: launched no time on the main path")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

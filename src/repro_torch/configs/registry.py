@@ -16,18 +16,19 @@ _ARCH_MODULES: Dict[str, str] = {
     "deepseek-v3-16b":  "deepseek_v3_16b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "rwkv6-3b":         "rwkv6_3b",
+    "mistral-7b":       "mistral_7b",
+    "deepseek-7b":      "deepseek_7b",
+    "qwen2.5-32b":      "qwen2_5_32b",
+    "nemotron-4-15b":   "nemotron_4_15b",
 }
 
-# archs of the JAX registry that a later slice of the port brings
+# archs of the JAX registry that a later slice of the port brings, with the
+# ROADMAP.md item that brings each
 _NOT_YET_PORTED: Dict[str, str] = {
-    "mistral-7b":           "ring (sliding-window) KV cache",
-    "deepseek-7b":          "other model families",
-    "qwen2.5-32b":          "other model families",
-    "nemotron-4-15b":       "other model families",
-    "grok-1-314b":          "314 B params: needs the multi-card FSDP slice",
-    "hymba-1.5b":           "other model families",
-    "whisper-medium":       "other model families",
-    "llama-3.2-vision-90b": "other model families",
+    "grok-1-314b":          "item 13b, the TP-expert layout",
+    "hymba-1.5b":           "item 16, the hybrid SSM family",
+    "whisper-medium":       "item 18, the encoder-decoder family",
+    "llama-3.2-vision-90b": "item 18, the vision family",
 }
 
 
@@ -35,7 +36,7 @@ def get_config(arch: str) -> ModelConfig:
     if arch in _NOT_YET_PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to repro_torch yet; see ROADMAP.md "
-            f"§1, '{_NOT_YET_PORTED[arch]}'")
+            f"§1, {_NOT_YET_PORTED[arch]}")
     if arch not in _ARCH_MODULES:
         raise KeyError(
             f"unknown arch {arch!r}; available: {', '.join(_ARCH_MODULES)}")

@@ -167,25 +167,37 @@ def attention(cfg, p, x, positions, *, causal=True, window_eff=0,
 # --------------------------------------------------------------------------- #
 # Decode over caches
 # --------------------------------------------------------------------------- #
-def cache_update(k_cache, v_cache, k_new, v_new, pos: int):
-    """Insert (B,1,kvH,D) entries at slot ``pos``, in place."""
-    k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
-    v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
+def cache_update(k_cache, v_cache, k_new, v_new, pos: int, *,
+                 ring: bool = False):
+    """Insert (B,1,kvH,D) entries at slot ``pos`` (a ring: ``pos % W``), in
+    place."""
+    idx = pos % k_cache.shape[1] if ring else pos
+    k_cache[:, idx:idx + 1] = k_new.to(k_cache.dtype)
+    v_cache[:, idx:idx + 1] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
 
 
-def decode_attention(cfg, p, x, pos: int, k_cache, v_cache):
-    """One-token decode: x (B,1,d), full-length caches (B,W,kvH,D), updated
-    in place (the JAX package returns new caches; here the old ones are
-    dead after the step).  Returns out, caches."""
+def decode_attention(cfg, p, x, pos: int, k_cache, v_cache, *,
+                     ring: bool = False):
+    """One-token decode: x (B,1,d), caches (B,W,kvH,D), updated in place
+    (the JAX package returns new caches; here the old ones are dead after
+    the step).  Returns out, caches.
+
+    ``ring``: the caches are a sliding-window ring of W slots, slot s
+    holding the latest position p <= pos with p == s (mod W)."""
     B = x.shape[0]
     W = k_cache.shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = project_q(cfg, p, x, positions)
     k_new, v_new = project_kv(cfg, p, x, positions)
-    k_cache, v_cache = cache_update(k_cache, v_cache, k_new, v_new, pos)
+    k_cache, v_cache = cache_update(k_cache, v_cache, k_new, v_new, pos,
+                                    ring=ring)
     kpos = torch.arange(W, device=x.device)
-    valid = kpos <= pos
+    if ring:
+        kpos = pos - (pos - kpos + W) % W        # the position in each slot
+        valid = (kpos >= 0) & (kpos <= pos)
+    else:
+        valid = kpos <= pos
     if cfg.window:
         valid &= kpos > pos - cfg.window
     out = sdpa(q, k_cache, v_cache, valid)

@@ -72,8 +72,12 @@ def load_dtype(path: Tuple[str, ...], spec: ParamSpec,
 def init_params(spec_tree, generator: torch.Generator, *,
                 dtype: torch.dtype, device, keep=None) -> Dict[str, Any]:
     """Random parameters made directly on ``device`` (the generator's), one
-    leaf at a time; ``keep(path, leaf)``, if given, returns what is kept of
-    each leaf (a shard) before the next is made."""
+    leaf at a time, and a leaf stacked along a leading 'layers' axis one
+    layer at a time: the float32 draw is one layer's, cast into its slice of
+    the leaf, so that the live memory while a model is made stays within
+    its weights plus one layer's float32 slice.  ``keep(path, leaf)``, if
+    given, returns what is kept of each leaf (a shard) before the next is
+    made."""
     def make(path, spec: ParamSpec) -> torch.Tensor:
         dt = load_dtype(path, spec, dtype)
         if spec.init == "zeros":
@@ -85,9 +89,16 @@ def init_params(spec_tree, generator: torch.Generator, *,
             scale = 1.0 / math.sqrt(max(_fan_in(spec.shape), 1))
         if spec.init == "embed":
             scale = 0.02
-        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return x.mul_(scale).to(dt)
+
+        def draw(shape):
+            return torch.randn(shape, generator=generator,
+                               dtype=torch.float32, device=device).mul_(scale)
+        if spec.axes[:1] != ("layers",):
+            return draw(spec.shape).to(dt)
+        out = torch.empty(spec.shape, dtype=dt, device=device)
+        for layer in out:
+            layer.copy_(draw(spec.shape[1:]))
+        return out
     if keep is None:
         return tree_map_specs(make, spec_tree)
     return tree_map_specs(lambda path, spec: keep(path, make(path, spec)),

@@ -16,9 +16,10 @@ and runs every layer under one activation checkpoint
 in the backward), the counterpart of the JAX package's
 ``jax.checkpoint(policy=nothing_saveable)`` around its scanned layer body.
 
-The KV cache is a full-length bf16 buffer per layer, written in place.
-Hybrid (SSM) layers and ring-buffer (sliding-window) caches are later
-slices of the port and raise here.
+The KV cache is a bf16 buffer per layer, written in place: full-length,
+or, for a sliding-window model whose cache is longer than its window, a
+ring of ``window`` slots (``cache_window``), as in the JAX package.
+Hybrid (SSM) layers are a later slice of the port and raise here.
 """
 from __future__ import annotations
 
@@ -50,10 +51,6 @@ class DecoderOnlyLM:
         self.cfg = cfg
         self.vp = pad_vocab(cfg.vocab_size)
         self.max_cache_len = max_cache_len or cfg.max_seq_len
-        if cfg.window and self.max_cache_len > cfg.window:
-            raise NotImplementedError(
-                f"{cfg.name}: the sliding-window ring cache is not ported "
-                f"yet (ROADMAP.md §1)")
         self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         # per layer: does it run a dense MLP (else the MoE block)
         self.dense_layers = [dense for n, dense in self.layer_groups()
@@ -245,10 +242,21 @@ class DecoderOnlyLM:
         return loss + aux, metrics
 
     # ---------------------------------------------------------------- decode
+    @property
+    def ring(self) -> bool:
+        """The cache is a sliding-window ring (the JAX package's ``_ring``):
+        a windowed model whose cache is longer than its window."""
+        return bool(self.cfg.window) and self.max_cache_len > self.cfg.window
+
+    @property
+    def cache_window(self) -> int:
+        """Slots of the cache: the window for a ring, else its length."""
+        return self.cfg.window if self.ring else self.max_cache_len
+
     def init_cache(self, batch: int, device,
                    dtype=torch.bfloat16) -> Dict[str, Any]:
         cfg = self.cfg
-        shape = (batch, self.max_cache_len, cfg.n_kv_heads, cfg.head_dim)
+        shape = (batch, self.cache_window, cfg.n_kv_heads, cfg.head_dim)
         return {
             "k": [torch.zeros(shape, dtype=dtype, device=device)
                   for _ in range(cfg.n_layers)],
@@ -265,7 +273,7 @@ class DecoderOnlyLM:
         B, S = tokens.shape
         if cache is None:
             cache = self.init_cache(B, tokens.device)
-        W = self.max_cache_len
+        W = self.cache_window
         # slot s holds the latest position p == s (mod W), as in the JAX
         # package; with S < W the prompt fills the first S slots
         slots = (torch.tensor([S - 1 - ((S - 1 - s) % W) for s in range(W)],
@@ -290,17 +298,19 @@ class DecoderOnlyLM:
 
     def decode_step(self, params, tokens, cache):
         """tokens: (B, 1).  Returns (logits (B,1,V), cache), the cache
-        updated in place."""
+        updated in place.  A ring decodes past any length; a full-length
+        cache raises past its end."""
         cfg = self.cfg
         pos = cache["pos"]
-        if pos >= self.max_cache_len:
+        if not self.ring and pos >= self.max_cache_len:
             raise ValueError(f"decode position {pos} is past the cache "
-                             f"window {self.max_cache_len}")
+                             f"length {self.max_cache_len}")
         x = self._embed(params, tokens)
         for i, lp in enumerate(params["layers"]):
             h = apply_norm(cfg, lp["ln1"], x)
             a, _, _ = attn.decode_attention(cfg, lp["attn"], h, pos,
-                                            cache["k"][i], cache["v"][i])
+                                            cache["k"][i], cache["v"][i],
+                                            ring=self.ring)
             x, _ = self._ffn(i, lp, x + a)
         cache["pos"] = pos + 1
         return self._logits(params, x), cache

@@ -9,7 +9,10 @@ and corrects bias in another form.)  Parameter trees are nested dicts of
 tensors; leaves are walked in sorted key order, as JAX flattens them.
 Unlike the JAX functions, ``adamw_update`` writes the new parameters and
 moments into the given tensors, in place: at full width a second copy of
-the state would not fit the card.
+the state would not fit the card.  It updates a large leaf a block of rows
+at a time (``PIECE``): the arithmetic is elementwise, so the values are
+the same, and the float32 temporaries are a block's, not the leaf's (a
+256,000 x 6,144 embedding would need ~6.3 GB for each).
 """
 from __future__ import annotations
 
@@ -20,6 +23,11 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.common import tree_leaves
+
+
+# elements of the largest block of a leaf that one pass of AdamW's
+# temporaries covers (256 MiB in float32)
+PIECE = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -60,6 +68,15 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def pieces(t: torch.Tensor):
+    """Views of ``t`` along its first axis, each at most ``PIECE`` elements
+    (or one row where a row is larger), covering it in order."""
+    if t.dim() == 0 or t.numel() <= PIECE:
+        return (t,)
+    rows = max(1, PIECE // max(t[0].numel(), 1))
+    return t.split(rows)
+
+
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
 
@@ -89,10 +106,11 @@ def adamw_update(cfg: TrainConfig, params, grads, state: AdamWState,
     b1, b2, eps = cfg.beta1, cfg.beta2, cfg.eps
     c1 = 1 - b1 ** step.float()
     c2 = 1 - b2 ** step.float()
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state.exp_avg),
-                          tree_leaves(state.exp_avg_sq)):
-        g = g.float() * scale                   # the clip, a leaf at a time
+    for p, g, m, v in (piece for leaves in zip(
+            tree_leaves(params), tree_leaves(grads),
+            tree_leaves(state.exp_avg), tree_leaves(state.exp_avg_sq))
+            for piece in zip(*map(pieces, leaves))):
+        g = g.float() * scale                   # the clip, a piece at a time
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * torch.square(g))
         del g

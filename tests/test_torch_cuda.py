@@ -73,6 +73,22 @@ def _path(fn, call):
     return out, next(iter(moved))
 
 
+# chip_smoke.py's row-by-row limit for the windowed kernels at S 8192: bf16
+# rounding stays near 2**-8 of a row, a window edge a tile off moves a row
+# whose window binds by ~0.1
+WINDOW_ROW_TOL = 2e-2
+
+
+def _row_err(a, b):
+    """The largest over rows (the last axis) of |a - b| over the larger of
+    |b| and the RMS of b's row norms (chip_smoke.row_err)."""
+    torch.cuda.synchronize()
+    a, b = a.float(), b.float()
+    norms = b.norm(dim=-1)
+    floor = float(norms.square().mean().sqrt())
+    return float(((a - b).norm(dim=-1) / norms.clamp_min(floor)).max())
+
+
 def _flash_case(cuda, B, Sq, Sk, H, kvH, D, seed=0, **kw):
     """bf16 inputs; the kernel (asserting the wgmma path) and the plain
     version."""
@@ -133,6 +149,57 @@ def test_flash_wgmma_mask_with_fully_masked_rows(cuda, D):
 def test_flash_wgmma_gqa_groups(cuda, kvH):
     """GQA groups 1, 2, 4 and 8: the kv head is h / group, never repeated."""
     _flash_case(cuda, 2, 200, 200, 8, kvH, 128, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [512, 4096])
+def test_flash_window_at_mistral_training_length(cuda, window):
+    """mistral-7b's training shape, B 1, S 8192, 32/8 heads, D 128, bf16,
+    causal with a window of 512 or 4096 (which binds at S 8192): the
+    forward and the backward kernels (wgmma) against their plain versions,
+    also row by row (WINDOW_ROW_TOL), where the same kernels with the
+    window a 64-key tile narrower or wider must fail."""
+    kw = dict(causal=True, window=window)
+    _flash_case(cuda, 1, 8192, 8192, 32, 8, 128, seed=window, **kw)
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 1, 8192, 8192, 32, 8, 128,
+                                      window, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    assert _row_err(o, ref) <= WINDOW_ROW_TOL
+    for shift in (-64, 64):
+        moved = flash_attention_fwd(q, k, v, causal=True,
+                                    window=window + shift)
+        assert _row_err(moved, ref) > WINDOW_ROW_TOL, shift
+    del ref
+    grads, path = _path(flash_attention_bwd, lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, **kw))
+    assert path == "wgmma"
+    plain = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, a, b in zip("qkv", grads, plain):
+        _rel(a, b, TOL[torch.bfloat16], f"d{name} vs plain backward")
+        assert _row_err(a, b) <= WINDOW_ROW_TOL, f"d{name} by rows"
+    for shift in (-64, 64):
+        moved = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                    window=window + shift)
+        assert max(_row_err(a, b) for a, b in zip(moved, plain)) \
+            > WINDOW_ROW_TOL, shift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("H", [40, 48])
+def test_flash_groups_of_5_and_6(cuda, H, window):
+    """qwen2.5-32b's 40/8 heads (group 5) and nemotron-4-15b's 48/8 (group
+    6) at D 128, bf16: forward and backward (wgmma) against the plain
+    versions."""
+    kw = dict(causal=True, window=window)
+    _flash_case(cuda, 2, 300, 300, H, 8, 128, seed=H, **kw)
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 2, 300, 300, H, 8, 128, H, **kw)
+    grads, path = _path(flash_attention_bwd, lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, **kw))
+    assert path == "wgmma"
+    for name, a, b in zip("qkv", grads,
+                          flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)):
+        _rel(a, b, TOL[torch.bfloat16], f"d{name} vs plain backward")
 
 
 @pytest.mark.cuda
@@ -404,6 +471,81 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
             lg, cg = model.decode_step(on_card, tok.to(cuda), cg)
             _close(lg, lc, 2e-3)
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mistral-7b", "deepseek-7b", "qwen2.5-32b",
+                                  "nemotron-4-15b"])
+def test_reduced_model_float32_cache_on_card_matches_cpu(cuda, arch):
+    """As above with a float32 cache on both sides (mistral's a ring of its
+    32-position window, which the decode steps wrap), so that no bf16
+    rounding of the cache can land apart: prefill and decode logits within
+    2e-4 (fp32 sums in another order through 4 layers)."""
+    cfg = get_reduced_config(arch).replace(compute_dtype="float32")
+    model = build_model(cfg, max_cache_len=40)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    on_card = _to(params, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        lc, cc = model.prefill(params, {"tokens": tokens},
+                               model.init_cache(2, "cpu", torch.float32))
+        lg, cg = model.prefill(on_card, {"tokens": tokens.to(cuda)},
+                               model.init_cache(2, cuda, torch.float32))
+        _close(lg, lc, 2e-4)
+        tok = tokens[:, -1:]
+        for _ in range(4):
+            lc, cc = model.decode_step(params, tok, cc)
+            lg, cg = model.decode_step(on_card, tok.to(cuda), cg)
+            _close(lg, lc, 2e-4)
+
+
+
+@pytest.mark.cuda
+def test_ring_decode_past_the_window_on_card_equals_plain_path(cuda):
+    """Reduced fp32 mistral-7b with a window of 8 and a cache of 48 asked
+    for (a ring of 8 slots): a prompt of 32 and 24 greedy tokens, past the
+    window and past the 48, through the kernels and through the plain
+    versions on the card: the same tokens, the prefill through the flash
+    kernel."""
+    from unittest import mock
+    from repro_torch.serve.decode import ServeConfig, ServingLoop
+    cfg = get_reduced_config("mistral-7b").replace(compute_dtype="float32",
+                                                   window=8)
+    model = build_model(cfg, max_cache_len=48)
+    assert model.ring and model.cache_window == 8
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(0),
+                               cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32))
+    loop = ServingLoop(model, params, 2, 32, ServeConfig(max_new_tokens=24),
+                       device=cuda)
+    _build.reset_counts(flash_attention_fwd)
+    got = loop.serve(prompts)
+    assert flash_attention_fwd.launches == cfg.n_layers
+    with mock.patch.object(fa_ops, "flash_attention", flash_attention_ref), \
+            mock.patch.object(rms_ops, "rmsnorm", rmsnorm_ref):
+        want = loop.serve(prompts)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_init_params_peak_is_the_leaf_and_one_float32_layer(cuda):
+    """A stacked bf16 leaf is made a layer at a time: the peak while it is
+    made is the leaf plus one layer's float32 draw, and each layer is
+    drawn at 1/sqrt(fan_in)."""
+    from repro_torch.models.common import ParamSpec, init_params
+    L, d, f = 8, 1024, 2048
+    spec = {"w": ParamSpec((L, d, f), ("layers", "embed", "mlp"))}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    p = init_params(spec, torch.Generator(device=cuda).manual_seed(0),
+                    dtype=torch.bfloat16, device=cuda)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert p["w"].dtype == torch.bfloat16 and p["w"].shape == (L, d, f)
+    assert peak <= L * d * f * 2 + d * f * 4, peak
+    std = p["w"].float().flatten(1).std(1) * d ** 0.5
+    assert bool(((std - 1).abs() < 0.01).all()), std
 
 
 # ------------------------------------------------------------- backwards
@@ -747,7 +889,9 @@ def _to_leaves(tree, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3.1-8b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["llama3.1-8b", "qwen3-4b", "mistral-7b",
+                                  "deepseek-7b", "qwen2.5-32b",
+                                  "nemotron-4-15b"])
 def test_reduced_training_step_on_card_matches_cpu(cuda, arch):
     """fp32 loss and every gradient leaf through the forward and backward
     kernels equal the CPU's plain path on the same parameters and batch
@@ -772,9 +916,14 @@ def test_reduced_training_step_on_card_matches_cpu(cuda, arch):
                                  "labels": labels.to(cuda)})
     lg.backward()
     torch.cuda.synchronize()
+    # RMSNorms a layer (ln1, ln2, q and k), and the final one; LayerNorm
+    # models launch no RMSNorm kernel
     L, norms = cfg.n_layers, 4 if cfg.qk_norm else 2
+    final = 1
+    if cfg.norm == "layernorm":
+        norms, final = 0, 0
     assert [fn.launches for fn in kernels] == \
-        [2 * L, L, 2 * norms * L + 1, norms * L + 1]
+        [2 * L, L, 2 * norms * L + final, norms * L + final]
     assert abs(float(lg.detach()) - float(lc.detach())) <= 1e-5 * float(lc.detach())
     for a, b in zip(tree_leaves(on_card), tree_leaves(params)):
         _rel(a.grad.cpu(), b.grad, 1e-4)

@@ -1,7 +1,8 @@
 """The port's training path against the JAX package, on the CPU.
 
-Loss, metrics and every gradient leaf of reduced fp32 ``llama3.1-8b`` and
-``qwen3-4b`` against ``jax.value_and_grad(model.loss)`` on parameters
+Loss, metrics and every gradient leaf of reduced fp32 ``llama3.1-8b``,
+``qwen3-4b``, ``mistral-7b``, ``deepseek-7b``, ``qwen2.5-32b`` (QKV bias)
+and ``nemotron-4-15b`` (LayerNorm, squared ReLU) against ``jax.value_and_grad(model.loss)`` on parameters
 carried over by the bridge; the gradients of the two kernel modules on the
 path (RMSNorm, flash attention: their plain backward from the log-sum-exp
 and autograd of their plain forward) against ``jax.grad`` of the JAX
@@ -48,7 +49,8 @@ from repro_torch.train.data import DataConfig, SyntheticTokens
 from repro_torch.train.optimizer import (adamw_update, clip_by_global_norm,
                                          init_state, lr_schedule)
 
-ARCHS = ["llama3.1-8b", "qwen3-4b"]
+ARCHS = ["llama3.1-8b", "qwen3-4b", "mistral-7b", "deepseek-7b",
+         "qwen2.5-32b", "nemotron-4-15b"]
 TOL = 2e-5
 
 
@@ -303,6 +305,31 @@ def test_adamw_steps_match_jax(steps):
         for a, b in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
             np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-6,
                                        atol=1e-9)
+
+
+@pytest.mark.parametrize("piece,blocks", [(1, 4), (5, 4), (7, 2)])
+def test_adamw_in_blocks_equals_whole_leaves(monkeypatch, piece, blocks):
+    """AdamW over blocks of at most ``piece`` elements of each leaf (a
+    (4, 3) leaf in ``blocks`` blocks of rows; one row where a row is larger)
+    writes the same bits into the parameters and moments as over whole
+    leaves, 3 steps."""
+    from repro_torch.train import optimizer
+    cfg = TrainConfig(lr=1e-2, warmup_steps=2, total_steps=10,
+                      weight_decay=0.1, grad_clip=1.0)
+    rng = np.random.default_rng(1)
+    p0, grads = _tree(rng), [_tree(rng, scale=2.0) for _ in range(3)]
+    runs = []
+    for block, n in ((optimizer.PIECE, 1), (piece, blocks)):
+        monkeypatch.setattr(optimizer, "PIECE", block)
+        assert len(optimizer.pieces(torch.zeros(4, 3))) == n
+        tp = _to_torch(p0)
+        ts = init_state(tp)
+        for g in grads:
+            tp, ts, _ = adamw_update(cfg, tp, _to_torch(g), ts)
+        runs.append([t.clone() for t in tree_leaves((tp, ts.exp_avg,
+                                                     ts.exp_avg_sq))])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_lr_schedule_matches_jax():
