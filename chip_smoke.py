@@ -107,10 +107,30 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    kernels (flash's wgmma kernels and the simt ones kept beside them,
    RMSNorm's, the grouped GEMM's dgrad and wgrad), their plain versions and
    the library's backward (torch.bmm for the GEMMs), after the served and
-   trained runs, whose host timings a profiler session would slow;
-7. the JSON line of the kernels, then the JSON line of the device.
+   trained runs, whose host timings a profiler session would slow; then
+   phase 7b's population profiled (busy share, device time by kernel);
+7. the fleet simulator, at the cluster/* scenarios' settings (run right
+   after phase 2, before any profiler session, since it reads host
+   clocks): 7a, a 4-node dp fleet on ``engine="torch"`` (the window-scan
+   kernel on the card) against ``engine="vector"`` on the host, 20
+   iterations, every trace matrix at rtol 1e-9 with equal NaN patterns,
+   then the managed fleet (``FleetPowerManager``, gpu-realloc, 120
+   iterations) with equal caps and history, ms an iteration of both; 7b,
+   ``run_fleet_scan`` over 64 fleets of 256 nodes of 8 devices (30 + 120
+   iterations, summary: seconds, launches, peak memory, the generators'
+   draws timed alone), the vector engine's host ms for one 256-node
+   iteration beside ``torch_iteration``'s, the scan's kernel path against
+   its plain path (same generator seeds), one fleet with the full
+   collection, pp and tp at 16 fleets; 7c, 3 fleets of 4 nodes through the
+   scan against ``ClusterSim`` stepped on the host, tail means within rel
+   5e-3;
+8. the JSON line of the kernels, then the JSON line of the device.
 
-Phase 2 also holds the backward kernels (flash attention's dQ, dK, dV
+Phase 2 also holds the float64 window scan (``c3_window``, the fleet
+simulator's kernel) against its plain version at rtol 1e-12, in emit and
+summary modes: one 256-node fleet, groups of 3 and 12 (shared memory), no
+collective (Km 0), a window with no kernel; durations shifted by one comm
+must fail; its time at 7b's population shape.  It also holds the backward kernels (flash attention's dQ, dK, dV
 from the forward's log-sum-exp, "wgmma" for bf16 D 64/128 and "simt" for
 the rest; RMSNorm's dx, dw; the grouped GEMM's dgrad and wgrad, "wgmma"
 for bf16 that TMA can read and "simt" for the rest) against their plain
@@ -133,6 +153,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import socket
@@ -150,8 +171,20 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
-from repro_torch.core.manager import ManagerConfig  # noqa: E402
+from repro_torch.core import torch_engine  # noqa: E402
+from repro_torch.core.backends import ClusterSimBackend  # noqa: E402
+from repro_torch.core.c3sim import (C3Sim, SimConfig,  # noqa: E402
+                                    vector_iteration, workload_arrays)
+from repro_torch.core.cluster import ClusterConfig, ClusterSim  # noqa: E402
+from repro_torch.core.manager import (FleetManagerConfig,  # noqa: E402
+                                      ManagerConfig, run_fleet_closed_loop)
+from repro_torch.core.thermal import PRESETS  # noqa: E402
+from repro_torch.core.workload import (CommKernel, CompKernel,  # noqa: E402
+                                       Workload, fsdp_llm_iteration)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.c3_window import ops as c3_ops  # noqa: E402
+from repro_torch.kernels.c3_window.kernel import c3_window_scan  # noqa: E402
+from repro_torch.kernels.c3_window.ref import c3_window_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd  # noqa: E402
@@ -188,7 +221,8 @@ from repro_torch.train.train_loop import (LitSiliconHook, Trainer,  # noqa: E402
 
 # H100 SXM data sheet (dense, 700 W): the card's least time for a function
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.float64: 34e12}     # float64 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # kernel path vs plain path, 2-layer full-width bf16 prefill logits: the two
 # paths round to bf16 at the same points but sum in another order, so values
@@ -298,6 +332,31 @@ INT8_STEPS = 3
 # (PERF.md section 6)
 TP_LOSS_TOL = 4e-3
 TP_TIMEOUT_S = 420
+# phase 7, the fleet simulator, at the cluster/* scenarios' settings
+# (src/repro/api/registry.py:81-120): llama3.1-8b cut to 8 layers, B 2 x S
+# 4096 over 8 shards; SimConfig(seed=1, comm_gbps=40); mi300x nodes of 8
+# devices capped at 700 W, node 0's hot device boosted 1.28; seed 5; 120
+# iterations; the fleet manager's knobs (gpu-realloc, tuning from iteration
+# 20).  7b's population: 64 fleets of 256 nodes (thermal seeds 5 + k), pp
+# and tp at 16; 7c: 3 fleets of 4 nodes, 40 iterations
+FLEET = dict(arch="llama3.1-8b", layers=8, batch=2, seq=4096, devices=8,
+             sim=dict(seed=1, comm_gbps=40.0), preset="mi300x", cap_w=700.0,
+             boost=1.28, seed=5, nodes=4, iterations=120, engine_steps=20,
+             tune_after=20,
+             manager=dict(use_case="gpu-realloc", sampling_period=2,
+                          warmup=2, window_size=2, node_window_size=2,
+                          power_cap=700.0),
+             pop_samples=64, pop_nodes=256, topo_samples=16, stat_samples=3,
+             stat_iterations=40)
+# the window scan against its plain version: both round every float64
+# operation on its own, in the same order (the kernel's _rn intrinsics are
+# never contracted into FMAs), so they should agree to the bit
+SCAN_RTOL = 1e-12
+# engine torch against engine vector, the JAX package's limits for its
+# engine against the vector engine (tests/test_jax_engine.py:54-62), and
+# the scan's tail means against ClusterSim's (tests/test_jax_engine.py:115)
+ENGINE_RTOL, ENGINE_ATOL = 1e-9, 1e-12
+STAT_REL = 5e-3
 # the redesigned kernels' times before their wgmma redesign, by this script
 # on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), at the shapes of phase 2:
 # printed in the log beside this run's times, never in the kernels line
@@ -473,7 +532,7 @@ def build() -> None:
     t0 = time.perf_counter()
     _build.build_all()
     for name in ("flash_attention", "flash_attention_bwd", "rmsnorm",
-                 "moe_gemm", "moe_gemm_bwd", "wkv6"):
+                 "moe_gemm", "moe_gemm_bwd", "wkv6", "c3_window"):
         _build.library(name)
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     for entry in _build.build_log:
@@ -1319,6 +1378,393 @@ def moe_gemm_bwd_checks(g) -> list:
 
 
 # --------------------------------------------------------------------------- #
+# Phase 2 (the C3 window scan) and phase 7: the fleet simulator
+# --------------------------------------------------------------------------- #
+def fleet_workload(layers: int = FLEET["layers"]):
+    """The cluster scenarios' workload: an FSDP iteration of llama3.1-8b
+    cut to ``layers`` layers, B 2 x S 4096, over 8 shards."""
+    cfg = get_config(FLEET["arch"]).replace(n_layers=layers)
+    return fsdp_llm_iteration(cfg, batch=FLEET["batch"], seq=FLEET["seq"],
+                              n_shards=FLEET["devices"])
+
+
+def edge_workloads() -> dict:
+    """Step tables the fleet workload does not have: no collective (Km 0),
+    and a window that holds no kernel (comm 0's producer is kernel 1 and
+    kernel 2 waits on it) beside a comm with no producer."""
+    comp = [CompKernel(f"k{i}", gflop=4e4 + 7e3 * i, gbyte=2.0 + 0.5 * i)
+            for i in range(6)]
+    no_comm = Workload(comp=[CompKernel(k.name, k.gflop, k.gbyte)
+                             for k in comp], comm=[], name="no-comm")
+    comp[2].wait_comm, comp[4].wait_comm = 0, 1
+    gated = Workload(comp=comp, comm=[CommKernel("c0", 2e8, producer=1),
+                                      CommKernel("c1", 1e8)], name="gated")
+    return {"Km 0": no_comm, "empty window": gated}
+
+
+def scan_inputs(g, wl, G: int, B: int, S: int = 1) -> tuple:
+    """The window scan's inputs at the fleet's settings: B groups of G lanes
+    in S samples, each lane at a clock drawn in [f_min, f_max], the kernel
+    and comm noise of SimConfig's sigma, on the generator's device."""
+    dev, f64 = str(g.device), torch.float64
+    plan = torch_engine.window_plan(wl)
+    A = workload_arrays(wl)
+    p, sim = PRESETS[FLEET["preset"]], SimConfig(**FLEET["sim"])
+    L = B * G
+    f = p.f_min + (p.f_max - p.f_min) * torch.rand(L, generator=g, device=dev,
+                                                   dtype=f64)
+    rate_f = p.peak_gflops * sim.gemm_eff * (f / p.f_max)
+    rm = torch.full((B,), p.hbm_gbps, dtype=f64, device=dev)
+    noise = torch.exp(sim.noise * torch.randn(
+        (S, plan.n_comp, L // S), generator=g, device=dev, dtype=f64))
+    base = torch.as_tensor(A["cbytes"] / (sim.comm_gbps * 1e9), device=dev)
+    dur = base * torch.exp(sim.noise * torch.randn(
+        (B, plan.n_comm), generator=g, device=dev, dtype=f64))
+    return (torch_engine._table(plan, dev), rate_f,
+            rate_f / (1.0 + sim.kappa_comp), rm, rm / (1.0 + sim.kappa_mem),
+            noise, torch.as_tensor(A["gflop"], device=dev),
+            torch.as_tensor(A["gbyte"], device=dev), dur)
+
+
+def scan_err(got, want) -> tuple:
+    """(largest |got - want| / (|want| + 1e-12), largest |got - want|) over a
+    scan's outputs (times in s, a ps floor where a time or an overlap is 0),
+    inf where the NaN patterns differ."""
+    rel = err = 0.0
+    for a, b in zip(got, want):
+        if not torch.equal(a.isnan(), b.isnan()):
+            return float("inf"), float("inf")
+        d = (a - b).nan_to_num(0.0).abs()
+        if d.numel():
+            err = max(err, float(d.max()))
+            rel = max(rel, float((d / (b.nan_to_num(0.0).abs() + 1e-12))
+                                 .max()))
+    return rel, err
+
+
+def c3_window_checks(g) -> dict:
+    """The window scan against its plain version: emit and summary at the
+    fleet's 256 nodes (one sample of phase 7b), groups of 3 and 12 (the
+    shared-memory path), Km 0 and an empty window; a planted control (the
+    kernel fed durations shifted by one comm must fail); then the kernel's
+    and the plain version's time at the population's shape (64 samples of
+    256 nodes of 8 lanes, summary mode, the launch phase 7b makes)."""
+    log("c3_window (kernel vs plain, float64):")
+    wl = fleet_workload()
+    cases = [("256 nodes x 8", wl, 8, FLEET["pop_nodes"], "shuffle"),
+             ("groups of 3", wl, 3, 101, "shared"),
+             ("groups of 12", wl, 12, 40, "shared"),
+             *((name, w, 8, 16, "shuffle")
+               for name, w in edge_workloads().items())]
+    err = 0.0
+    for name, w, G, B, want in cases:
+        inp = scan_inputs(g, w, G, B)
+        for emit in (True, False):
+            got, path = took(c3_window_scan,
+                             lambda: c3_window_scan(*inp, G, emit))
+            rel, e = scan_err(got, c3_window_ref(*inp, G, emit))
+            err = max(err, e) if name.startswith("256") else err
+            ok = rel <= SCAN_RTOL and path == want
+            log(f"  {name}, {('emit' if emit else 'summary')} "
+                f"[{path}]: largest relative error {rel:.3e} (rtol "
+                f"{SCAN_RTOL:g}) {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise AssertionError(f"c3_window {name}: {rel} off the plain "
+                                     f"version, or took {path} for {want}")
+        if name.startswith("256"):
+            shifted = inp[:-1] + (inp[-1].roll(1, dims=1).contiguous(),)
+            rel, _ = scan_err(c3_window_scan(*shifted, G, True),
+                              c3_window_ref(*inp, G, True))
+            log(f"  control, durations shifted by one comm: {rel:.3e} "
+                f"{'fails, as it must' if rel > SCAN_RTOL else 'PASSES'}")
+            if not rel > SCAN_RTOL:
+                raise AssertionError("c3_window: the shifted control passed")
+    one = scan_inputs(g, wl, 8, FLEET["pop_nodes"])
+    one_ms = cuda_ms(lambda: c3_window_scan(*one, 8, False))
+    S, N = FLEET["pop_samples"], FLEET["pop_nodes"]
+    inp = scan_inputs(g, wl, 8, S * N, S)
+    rel, e = scan_err(c3_window_scan(*inp, 8, False),
+                      c3_window_ref(*inp, 8, False))
+    log(f"  population {S} x {N} x 8, summary: largest relative error "
+        f"{rel:.3e} (rtol {SCAN_RTOL:g}) {'ok' if rel <= SCAN_RTOL else 'FAILED'}")
+    if rel > SCAN_RTOL:
+        raise AssertionError(f"c3_window population: {rel} off")
+    ms = cuda_ms(lambda: c3_window_scan(*inp, 8, False), iters=10)
+    plain_ms = cuda_ms(lambda: c3_window_ref(*inp, 8, False), iters=2,
+                       warmup=1)
+    table, L, B = inp[0], inp[1].numel(), inp[3].numel()
+    Kc = inp[6].numel()
+    nbytes = (8 * inp[5].numel() + 8 * 2 * L + 8 * 2 * B + 8 * inp[8].numel()
+              + 4 * table.numel() + 8 * 2 * Kc + 8 * (B + L))
+    flops = 6 * L * Kc        # per lane and kernel: 2 products, 2 divisions,
+    #                           2 adds, what every lane needs once
+    b_ms, b_by = bound(nbytes, flops, torch.float64)
+    log(f"  population: kernel {ms:.4f} ms (one sample {one_ms:.4f} ms), "
+        f"plain {plain_ms:.2f} ms, bound {b_ms * 1e3:.1f} us ({b_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {CARD}")
+    del one, inp
+    torch.cuda.empty_cache()
+    return dict(name="c3_window", route="cuda",
+                source="src/repro_torch/kernels/csrc/c3_window.cu",
+                replaces="none: XLA jit of _iteration_scan, "
+                         "src/repro/core/jax_engine.py:198",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, sample_ms=one_ms,
+                shape=f"{S} samples x {N} nodes x 8 lanes, Kc {Kc}, summary")
+
+
+def fleet(engine: str, n: int, seed: int = FLEET["seed"]) -> ClusterSim:
+    """The cluster/dp scenario's fleet of ``n`` nodes on ``engine``, at its
+    700 W caps after the warmup."""
+    c = ClusterSim(fleet_workload(), PRESETS[FLEET["preset"]],
+                   SimConfig(**FLEET["sim"]),
+                   ClusterConfig(n_nodes=n, straggler_boost=FLEET["boost"],
+                                 topology="dp", engine=engine),
+                   devices_per_node=FLEET["devices"], seed=seed)
+    for k in range(n):
+        c.set_node_caps(k, np.full(c.G, FLEET["cap_w"]))
+    return c
+
+
+def counted_run(runs: dict, name: str, expected: int, call):
+    """call() with the window scan's counts set to 0 just before and read
+    just after, as run ``name``; the launches must equal ``expected``."""
+    _build.reset_counts(c3_window_scan)
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    runs[name] = ({"c3_window_scan": c3_window_scan.launches},
+                  {"c3_window_scan": dict(c3_window_scan.launches_by_path)})
+    if c3_window_scan.launches != expected:
+        raise AssertionError(f"{name}: {c3_window_scan.launches} window-scan "
+                             f"launches, expected {expected}")
+    return out, secs
+
+
+def close_traces(a, b, what: str) -> float:
+    """Every trace matrix of ``a`` within rtol 1e-9, atol 1e-12 of ``b``,
+    NaN patterns equal; returns the largest relative difference."""
+    worst = 0.0
+    for ta, tb in zip(a, b):
+        for field in ("comp_start", "comp_end", "comp_overlap", "comm_start",
+                      "comm_end", "util"):
+            x, y = getattr(ta, field), getattr(tb, field)
+            if not np.array_equal(np.isnan(x), np.isnan(y)) or not np.allclose(
+                    x, y, rtol=ENGINE_RTOL, atol=ENGINE_ATOL, equal_nan=True):
+                raise AssertionError(f"{what}: {field} off the vector engine")
+            d = np.abs(np.nan_to_num(x) - np.nan_to_num(y))
+            if d.size:
+                worst = max(worst, float((d / np.maximum(
+                    np.abs(np.nan_to_num(y)), 1e-300)).max()))
+    return worst
+
+
+def scan_population(spec_kw: dict, samples: int, nodes: int, iters: int,
+                    collect: str, topology: str = "dp"):
+    """A fleet scan's spec and the stacked arrays of ``samples`` fleets of
+    ``nodes`` nodes (thermal seeds seed + k, noise keys k), as the JAX
+    package's sweep stacks them; ``samples`` 0: one fleet, unstacked."""
+    wl, sim = fleet_workload(), SimConfig(**FLEET["sim"])
+    cc = ClusterConfig(n_nodes=nodes, straggler_boost=FLEET["boost"],
+                       topology=topology)
+    spec = torch_engine.fleet_scan_spec(wl, sim, cc, iters, collect=collect,
+                                        devices_per_node=FLEET["devices"])
+    if spec_kw:
+        spec = dataclasses.replace(spec, **spec_kw)
+    arrays = [torch_engine.build_fleet_arrays(
+        wl, PRESETS[FLEET["preset"]], sim, cc, FLEET["cap_w"],
+        FLEET["seed"] + k, devices_per_node=FLEET["devices"], rng_seed=k)
+        for k in range(max(samples, 1))]
+    if not samples:
+        return spec, arrays[0]
+    return spec, {k: np.stack([a[k] for a in arrays]) for k in arrays[0]}
+
+
+def tail_means(t_fleet, power, n: int = 30) -> dict:
+    t, p = np.asarray(t_fleet)[-n:], np.asarray(power)[-n:]
+    return {"t_fleet": float(t.mean()), "throughput": float((1 / t).mean()),
+            "power": float(p.mean())}
+
+
+def fleet_sim(args) -> tuple:
+    """Phase 7, the fleet simulator at the cluster scenarios' settings.
+    Returns {run: (launch counts, counts by path)} of the window scan, and
+    the seconds of 7b's population."""
+    runs: dict = {}
+    n4, iters = FLEET["nodes"], FLEET["iterations"]
+    # 7a: the engine against the vector engine, then the managed fleet
+    ct, cv = fleet("torch", n4), fleet("vector", n4)
+    steps = FLEET["engine_steps"]
+    tt, t_secs = counted_run(runs, f"7a dp {n4} nodes", steps,
+                             lambda: [ct.step() for _ in range(steps)])
+    t0 = time.perf_counter()
+    tv = [cv.step() for _ in range(steps)]
+    v_secs = time.perf_counter() - t0
+    worst = max(close_traces(a, b, "7a") for a, b in zip(tt, tv))
+    ht, hv = ([h["t_fleet"] for h in c.history] for c in (ct, cv))
+    if not np.allclose(ht, hv, rtol=ENGINE_RTOL, atol=0.0):
+        raise AssertionError("7a: t_fleet history off the vector engine")
+    log(f"7a: {n4}-node dp fleet, {steps} iterations, engine torch on the "
+        f"card against vector on the host: every trace matrix within rtol "
+        f"{ENGINE_RTOL:g} (largest {worst:.3e}), NaN patterns and t_fleet "
+        f"history equal; ms per iteration torch {t_secs / steps * 1e3:.3f}, "
+        f"vector {v_secs / steps * 1e3:.3f}; {CARD}")
+    knobs = dict(FLEET["manager"],
+                 cluster_power_budget=n4 * FLEET["devices"] * FLEET["cap_w"])
+    managed = {}
+    for engine in ("torch", "vector"):
+        c = fleet(engine, n4)
+
+        def loop():
+            return run_fleet_closed_loop(ClusterSimBackend(c),
+                                         FleetManagerConfig(**knobs), iters,
+                                         tune_after=FLEET["tune_after"])
+        if engine == "torch":
+            mgr, secs = counted_run(runs, f"7a managed {n4} nodes", iters,
+                                    loop)
+        else:
+            t0 = time.perf_counter()
+            mgr = loop()
+            secs = time.perf_counter() - t0
+        caps = np.stack([c.get_node_caps(k) for k in range(n4)])
+        managed[engine] = (caps, np.array([h["t_fleet"] for h in c.history]),
+                           np.stack(mgr.budget_log), secs)
+    (ca, ha, ba, ta), (cb, hb, bb, tb) = managed["torch"], managed["vector"]
+    same = (ba.shape == bb.shape and np.allclose(ca, cb, rtol=ENGINE_RTOL)
+            and np.allclose(ha, hb, rtol=ENGINE_RTOL)
+            and np.allclose(ba, bb, rtol=ENGINE_RTOL))
+    log(f"7a: managed fleet (gpu-realloc, {iters} iterations, tuning from "
+        f"{FLEET['tune_after']}): {len(ba)} budget moves, caps and t_fleet "
+        f"history {'equal within 1e-9' if same else 'DIFFER'}; t_fleet "
+        f"tail {ha[-1]:.6f} s; ms per iteration torch "
+        f"{ta / iters * 1e3:.3f}, vector {tb / iters * 1e3:.3f}")
+    if not same:
+        raise AssertionError("7a: the managed fleet's caps or history differ")
+    # 7b: a Monte-Carlo population of 256-node fleets
+    S, N = FLEET["pop_samples"], FLEET["pop_nodes"]
+    t0 = time.perf_counter()
+    spec, arrays = scan_population({}, S, N, iters, "summary")
+    build_s = time.perf_counter() - t0
+    T = spec.warmup + iters
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, pop_secs = counted_run(
+        runs, f"7b dp {S} x {N} nodes", T,
+        lambda: torch_engine.run_fleet_scan(spec, arrays))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    finite = all(np.isfinite(v).all() for v in out.values())
+    shapes = (out["t_fleet"].shape == (S, iters)
+              and out["temp"].shape == (S, N, FLEET["devices"]))
+    tm = tail_means(out["t_fleet"].mean(0), out["fleet_power"].mean(0))
+    log(f"7b: {S} samples x {N} nodes x {FLEET['devices']} lanes "
+        f"({S * N * FLEET['devices']:,} lanes), {spec.warmup} + {iters} "
+        f"iterations, summary: {pop_secs:.3f} s on the card "
+        f"({pop_secs / T * 1e3:.2f} ms an iteration of the population, "
+        f"{pop_secs / T / S * 1e3:.3f} a fleet), {T} launches, peak "
+        f"{peak:.2f} GB; arrays built in "
+        f"{build_s:.2f} s on the host; t_fleet tail mean {tm['t_fleet']:.6f} s, "
+        f"fleet power {tm['power'] / 1e3:.1f} kW; finite {finite}, shapes "
+        f"{'ok' if shapes else 'WRONG'}; {CARD}")
+    if not (finite and shapes):
+        raise AssertionError("7b: the population's output is not finite or "
+                             "not of the expected shape")
+    # the scan's draws alone: each sample's kernel and comm noise from its
+    # own generator, T iterations, as run_fleet_scan draws them
+    gens = [torch.Generator(device="cuda").manual_seed(k) for k in range(S)]
+    noise = torch.empty((S, spec.plan.n_comp, N * FLEET["devices"]),
+                        dtype=torch.float64, device="cuda")
+    dur = torch.empty((S, N, spec.plan.n_comm), dtype=torch.float64,
+                      device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(T):
+        for k, gen in enumerate(gens):
+            noise[k].normal_(generator=gen)
+            dur[k].normal_(generator=gen)
+    torch.cuda.synchronize()
+    draws_s = time.perf_counter() - t0
+    log(f"7b: the {S} samples' generator draws alone, {T} iterations: "
+        f"{draws_s:.3f} s of the population's {pop_secs:.3f} s")
+    del noise, dur
+    wl = fleet_workload()
+    sims = [C3Sim(wl, PRESETS[FLEET["preset"]],
+                  SimConfig(**dict(FLEET["sim"], seed=FLEET["sim"]["seed"]
+                                   + n)), FLEET["devices"])
+            for n in range(N)]
+    freqs = [np.full(FLEET["devices"], PRESETS[FLEET["preset"]].f_max)] * N
+    noises = [[s._draw_noise() for s in sims] for _ in range(3)]
+    t0 = time.perf_counter()
+    for nz in noises:
+        tv = vector_iteration(sims, freqs, nz)
+    v_ms = (time.perf_counter() - t0) / 3 * 1e3
+    tt, secs = counted_run(runs, f"7b torch_iteration {N} nodes", 3, lambda: [
+        torch_engine.torch_iteration(sims, freqs, nz) for nz in noises])
+    worst = close_traces(tt[-1], tv, "7b torch_iteration")
+    log(f"7b: one {N}-node iteration from the numpy noise: vector engine "
+        f"{v_ms:.2f} ms on the host, torch_iteration {secs / 3 * 1e3:.2f} ms "
+        f"(the trace to and from the card included; rtol {worst:.2e}); the "
+        f"scan {pop_secs / T / S * 1e3:.3f} ms a fleet-iteration in the "
+        f"population")
+    small = scan_population(dict(warmup=2), 2, N, 3, "full")
+    got = torch_engine.run_fleet_scan(*small)
+    with mock.patch.object(c3_ops, "c3_window", c3_window_ref):
+        want = torch_engine.run_fleet_scan(*small)
+    worst = max(float(np.max(np.abs(got[k] - want[k]) / np.maximum(
+        np.abs(want[k]), 1e-300))) for k in got)
+    log(f"7b: the scan's kernel path against its plain path, same generator "
+        f"seeds (2 x {N} nodes, 2 + 3 iterations, full): largest relative "
+        f"difference {worst:.3e} (rtol {ENGINE_RTOL:g})")
+    if not worst <= ENGINE_RTOL:
+        raise AssertionError("7b: the scan's kernel path is off its plain path")
+    spec1, arrays1 = scan_population({}, 0, N, iters, "full")
+    out, secs = counted_run(runs, f"7b dp {N} nodes full", T,
+                            lambda: torch_engine.run_fleet_scan(spec1, arrays1))
+    ok = (out["t_local"].shape == (iters, N) and out["lead"].shape == (iters, N)
+          and all(np.isfinite(v).all() for v in out.values())
+          and np.allclose(out["lead"].min(1), 0.0))
+    log(f"7b: one {N}-node fleet, collect full: {secs:.3f} s, t_local "
+        f"{out['t_local'].shape}, straggler lead 0 every iteration "
+        f"{'ok' if ok else 'WRONG'}")
+    if not ok:
+        raise AssertionError("7b: the full collection is wrong")
+    for topo in ("pp", "tp"):
+        spec_t, arrays_t = scan_population({}, FLEET["topo_samples"], N, iters,
+                                           "summary", topo)
+        out, secs = counted_run(
+            runs, f"7b {topo} {FLEET['topo_samples']} x {N} nodes", T,
+            lambda: torch_engine.run_fleet_scan(spec_t, arrays_t))
+        ok = all(np.isfinite(v).all() for v in out.values())
+        log(f"7b: {topo}, {FLEET['topo_samples']} samples x {N} nodes: "
+            f"{secs:.3f} s; t_fleet tail mean "
+            f"{tail_means(out['t_fleet'].mean(0), out['fleet_power'].mean(0))['t_fleet']:.6f} s; "
+            f"finite {ok}")
+        if not ok:
+            raise AssertionError(f"7b {topo}: not finite")
+    # 7c: the statistics, the scan against stepping ClusterSim per sample
+    k3, it3 = FLEET["stat_samples"], FLEET["stat_iterations"]
+    spec3, arrays3 = scan_population({}, k3, n4, it3, "summary")
+    out, _ = counted_run(runs, f"7c dp {k3} x {n4} nodes", spec3.warmup + it3,
+                         lambda: torch_engine.run_fleet_scan(spec3, arrays3))
+    worst = 0.0
+    for k in range(k3):
+        c = fleet("vector", n4, FLEET["seed"] + k)
+        for _ in range(it3):
+            c.step()
+        want = tail_means([h["t_fleet"] for h in c.history],
+                          [h["power"] for h in c.history])
+        got = tail_means(out["t_fleet"][k], out["fleet_power"][k])
+        worst = max(worst, *(abs(got[m] / want[m] - 1) for m in got))
+    log(f"7c: {k3} samples of the {n4}-node dp fleet, {it3} iterations: "
+        f"tail means of t_fleet, throughput and fleet power, the scan on the "
+        f"card against ClusterSim stepped on the host, largest relative "
+        f"difference {worst:.3e} (limit {STAT_REL:g})")
+    if not worst <= STAT_REL:
+        raise AssertionError("7c: the scan's statistics are off ClusterSim's")
+    return runs, pop_secs
+
+
+# --------------------------------------------------------------------------- #
 # Phase 3: serve llama3.1-8b, deepseek-v3-16b and rwkv6-3b
 # --------------------------------------------------------------------------- #
 def rmsnorms(cfg) -> tuple:
@@ -1542,7 +1988,7 @@ def device_profile(what: str, step_ms: float, fn, top: int = 6):
         f"({100 * busy / step_ms:.1f}%, idle {100 - 100 * busy / step_ms:.1f}%)"
         f" in {sum(r[1] for r in rows)} kernel launches (their times summed "
         f"{sum(r[0] for r in rows):.2f} ms); {CARD}")
-    ours = ("fa_fwd", "fa_bwd", "moe_gemm", "rms_", "wkv6_")
+    ours = ("fa_fwd", "fa_bwd", "moe_gemm", "rms_", "wkv6_", "c3_window")
     for n, (ms, count, key) in enumerate(sorted(rows, reverse=True)):
         if n < top or any(k in key for k in ours):   # and the port's kernels
             log(f"  {ms:8.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  "
@@ -2577,6 +3023,27 @@ def device_times(g, rows: dict, rounds: int = 3) -> None:
                         for t in ms) + f"; {CARD}")
 
 
+def fleet_profile(pop_secs: float) -> None:
+    """Phase 7b's population once more under torch.profiler (after the
+    host-clock phases): the device's busy share of its unprofiled time and
+    the device time by kernel."""
+    spec, arrays = scan_population({}, FLEET["pop_samples"],
+                                   FLEET["pop_nodes"], FLEET["iterations"],
+                                   "summary")
+    prof, _ = device_profile(
+        f"7b population ({FLEET['pop_samples']} x {FLEET['pop_nodes']} "
+        f"nodes)", pop_secs * 1e3,
+        lambda: torch_engine.run_fleet_scan(spec, arrays), top=8)
+    from torch.autograd import DeviceType
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), reverse=True)
+    log("  host time by operation (self, profiled, so slower than the "
+        "unprofiled run):")
+    for ms, count, key in host[:8]:
+        log(f"  {ms:8.3f} ms  x{count:<6d} {key[:80]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2610,6 +3077,10 @@ def main(argv=None) -> int:
     costs = host_costs(g)
     for row in rows:
         row.update(costs.get(row["name"], {}))
+    rows.append(c3_window_checks(g))
+    # phase 7 runs here, before any profiler session (which would slow the
+    # host clocks it reads)
+    fleet_runs, pop_secs = fleet_sim(args)
     torch.cuda.empty_cache()
     by_run = {"llama3.1-8b": serve(args, "llama3.1-8b")}
     kernel_vs_plain(args)
@@ -2639,6 +3110,7 @@ def main(argv=None) -> int:
     by_name = {row["name"]: row for row in rows}
     device_times(g, by_name)
     backward_device_times(g, by_name)
+    fleet_profile(pop_secs)
     # each row's kernel wrapper, and the runs whose launches it counts (the
     # windowed rows: those of the runs whose every flash launch is windowed)
     counted = {"flash_attention_window": (fa_ops.flash_attention_fwd,
@@ -2647,6 +3119,8 @@ def main(argv=None) -> int:
                                               WINDOWED_RUNS)}
     for row, fn in zip(rows, KERNELS):
         counted[row["name"]] = (fn, tuple(by_run))
+    by_run.update(fleet_runs)
+    counted["c3_window"] = (c3_window_scan, tuple(fleet_runs))
     for row in rows:
         fn, names = counted[row["name"]]
         name = fn.__name__

@@ -45,7 +45,10 @@ class SimConfig:
     seed: int = 0
     engine: str = "event"           # "event" (heap reference) | "batched"
     #                                 | "vector" (numpy, batches node groups)
-    #                                 | "jax" (XLA, jitted; see jax_engine)
+    #                                 | "torch" (the CUDA window scan; see
+    #                                 torch_engine)
+    device: str = "cuda"            # where engine "torch" runs (no other
+    #                                 engine reads it); "cpu" when asked
 
 
 def workload_arrays(wl: Workload) -> dict:
@@ -153,8 +156,9 @@ class C3Sim:
 
         The engine entry point: ``engine`` (default ``cfg.engine``) picks
         the execution strategy — ``"event"`` (heap reference),
-        ``"batched"`` (per-window numpy), ``"vector"`` / ``"jax"``
-        (all-lanes batched; this sim becomes a single-group call).  All
+        ``"batched"`` (per-window numpy), ``"vector"`` / ``"torch"``
+        (all-lanes batched; this sim becomes a single-group call; "torch"
+        on ``cfg.device``).  All
         engines consume the same RNG draws (`_draw_noise` runs first), so
         the choice never changes the physics — see docs/engines.md for the
         per-pair equivalence guarantees."""
@@ -167,10 +171,14 @@ class C3Sim:
         if engine == "vector":
             return vector_iteration([self], [np.asarray(freq, float)],
                                     [(noise_c, dur_comm)])[0]
+        if engine == "torch":
+            from repro_torch.core.torch_engine import torch_iteration
+            return torch_iteration([self], [np.asarray(freq, float)],
+                                   [(noise_c, dur_comm)],
+                                   device=self.cfg.device)[0]
         if engine == "jax":
-            raise NotImplementedError(
-                "engine 'jax' is the JAX package's; the port's own engine is "
-                "ROADMAP.md slice 9")
+            raise ValueError("engine 'jax' is the JAX package's; the port's "
+                             "counterpart is engine 'torch'")
         raise ValueError(f"unknown engine {engine!r}")
 
     # ----------------------------------------------------- event (reference)

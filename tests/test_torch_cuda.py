@@ -1317,3 +1317,110 @@ def test_fsdp_world1_prefetch_survives_memory_churn(cuda, monkeypatch,
                         late(fsdp_mod.reduce_scatter_dim, 1))
     ahead = _world1_arms(monkeypatch, tc, (True,))[0]
     _assert_same_arms(ahead, in_place, 3)
+
+
+# --------------------------------------------------------------------------- #
+# the C3 window scan (the fleet simulator's kernel), float64: kernel and
+# plain version round each operation on its own in the same order, so they
+# agree to the bit; 1e-12 relative (a ps floor where a time is 0)
+# --------------------------------------------------------------------------- #
+def _fleet_workload(n_layers=8):
+    from repro_torch.configs import get_config
+    from repro_torch.core.workload import fsdp_llm_iteration
+    return fsdp_llm_iteration(get_config("llama3.1-8b").replace(
+        n_layers=n_layers), batch=2, seq=4096, n_shards=8)
+
+
+def _scan_inputs(wl, G, B, seed=0):
+    from repro_torch.core import torch_engine
+    from repro_torch.core.c3sim import workload_arrays
+    plan = torch_engine.window_plan(wl)
+    A = workload_arrays(wl)
+    rng = np.random.default_rng(seed)
+
+    def put(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64,
+                               device="cuda")
+    rate_f = put(rng.uniform(3e5, 6e5, B * G))
+    rm = put(np.full(B, 5300.0))
+    noise = put(np.exp(0.008 * rng.standard_normal((1, plan.n_comp, B * G))))
+    dur = put(A["cbytes"] / 40e9 * np.exp(
+        0.008 * rng.standard_normal((B, plan.n_comm))))
+    return (torch_engine._table(plan, "cuda"), rate_f, rate_f / 1.45, rm,
+            rm / 1.75, noise, put(A["gflop"]), put(A["gbyte"]), dur)
+
+
+def _scan_close(got, want):
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.isnan(), b.isnan())
+        if a.numel():
+            d = (a - b).nan_to_num(0.0).abs()
+            assert float((d / (b.nan_to_num(0.0).abs() + 1e-12)).max()) \
+                <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit", [True, False])
+@pytest.mark.parametrize("case,G,path", [("fleet", 8, "shuffle"),
+                                         ("fleet", 3, "shared"),
+                                         ("no-comm", 8, "shuffle")])
+def test_c3_window_matches_plain(cuda, case, G, path, emit):
+    """Groups of 8 (shuffles) and of 3 (shared memory), and a workload with
+    no collective (Km 0), in emit and summary modes."""
+    from repro_torch.core.workload import CompKernel, Workload
+    from repro_torch.kernels.c3_window.kernel import c3_window_scan
+    from repro_torch.kernels.c3_window.ref import c3_window_ref
+    wl = _fleet_workload()
+    if case == "no-comm":
+        wl = Workload(comp=[CompKernel(k.name, k.gflop, k.gbyte)
+                            for k in wl.comp[:20]], comm=[], name="no-comm")
+    inp = _scan_inputs(wl, G, 37)
+    got, took = _path(c3_window_scan, lambda: c3_window_scan(*inp, G, emit))
+    assert took == path
+    _scan_close(got, c3_window_ref(*inp, G, emit))
+
+
+@pytest.mark.cuda
+def test_c3_window_shifted_durations_fail(cuda):
+    """The planted control: the kernel fed durations shifted by one comm is
+    far off the plain version at the true durations."""
+    from repro_torch.kernels.c3_window.kernel import c3_window_scan
+    from repro_torch.kernels.c3_window.ref import c3_window_ref
+    inp = _scan_inputs(_fleet_workload(), 8, 37)
+    shifted = inp[:-1] + (inp[-1].roll(1, dims=1).contiguous(),)
+    with pytest.raises(AssertionError):
+        _scan_close(c3_window_scan(*shifted, 8, True),
+                    c3_window_ref(*inp, 8, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nodes", [4, 1])
+def test_cluster_torch_engine_matches_vector_on_card(cuda, nodes):
+    """ClusterSim(engine="torch") on the card against engine="vector" on
+    the host, 5 iterations: every trace matrix at rtol 1e-9, atol 1e-12,
+    NaN patterns equal (the JAX package's limits for its engine).  One
+    node launches the kernel too (the vector engine's one-node fleet runs
+    the batched engine)."""
+    from repro_torch.core.c3sim import SimConfig
+    from repro_torch.core.cluster import ClusterConfig, ClusterSim
+    from repro_torch.core.thermal import MI300X_PRESET
+    from repro_torch.kernels.c3_window.kernel import c3_window_scan
+    wl = _fleet_workload()
+    cs = [ClusterSim(wl, MI300X_PRESET, SimConfig(seed=1, comm_gbps=40.0),
+                     ClusterConfig(n_nodes=nodes, engine=engine),
+                     devices_per_node=8, seed=5)
+          for engine in ("torch", "vector")]
+    before = c3_window_scan.launches
+    for _ in range(5):
+        for a, b in zip(*(c.step() for c in cs)):
+            for f in ("comp_start", "comp_end", "comp_overlap", "comm_start",
+                      "comm_end", "util"):
+                x, y = getattr(a, f), getattr(b, f)
+                np.testing.assert_array_equal(np.isnan(x), np.isnan(y))
+                np.testing.assert_allclose(x, y, rtol=1e-9, atol=1e-12,
+                                           equal_nan=True, err_msg=f)
+    assert c3_window_scan.launches - before == 5
+    np.testing.assert_allclose([h["t_fleet"] for h in cs[0].history],
+                               [h["t_fleet"] for h in cs[1].history],
+                               rtol=1e-9)
