@@ -108,7 +108,8 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    RMSNorm's, the grouped GEMM's dgrad and wgrad), their plain versions and
    the library's backward (torch.bmm for the GEMMs), after the served and
    trained runs, whose host timings a profiler session would slow; then
-   phase 7b's population profiled (busy share, device time by kernel);
+   phase 7b's population profiled (busy share over its warm and its
+   first call, device time by kernel);
 7. the fleet simulator, at the cluster/* scenarios' settings (run right
    after phase 2, before any profiler session, since it reads host
    clocks): 7a, a 4-node dp fleet on ``engine="torch"`` (the window-scan
@@ -117,20 +118,34 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    then the managed fleet (``FleetPowerManager``, gpu-realloc, 120
    iterations) with equal caps and history, ms an iteration of both; 7b,
    ``run_fleet_scan`` over 64 fleets of 256 nodes of 8 devices (30 + 120
-   iterations, summary: seconds, launches, peak memory, the generators'
-   draws timed alone), the vector engine's host ms for one 256-node
-   iteration beside ``torch_iteration``'s, the scan's kernel path against
-   its plain path (same generator seeds), one fleet with the full
-   collection, pp and tp at 16 fleets; 7c, 3 fleets of 4 nodes through the
-   scan against ``ClusterSim`` stepped on the host, tail means within rel
-   5e-3;
+   iterations, summary, the window scan's draw form: the seconds of a
+   first and a second call, launches, peak memory; a host profile,
+   cProfile, of its iterations), the vector engine's host ms for one
+   256-node iteration beside ``torch_iteration``'s, the scan's kernel path
+   against its plain path (the same keys, dp, pp, tp, spikes on, rtol
+   1e-12), the scan on the card against the same call on the CPU in the
+   CPU tests' six cases (rtol 1e-9, the slowest and straggler nodes
+   equal), one fleet with the full collection, pp and tp at 16 fleets
+   (``jax_normal`` under tp); 7c, 3 fleets of 4 nodes through the scan
+   against ``ClusterSim`` stepped on the host, tail means within rel 5e-3;
+   after phase 6, the scan's launches an iteration at 16 and 64 fleets
+   (torch.profiler), which must be equal;
 8. the JSON line of the kernels, then the JSON line of the device.
 
 Phase 2 also holds the float64 window scan (``c3_window``, the fleet
 simulator's kernel) against its plain version at rtol 1e-12, in emit and
 summary modes: one 256-node fleet, groups of 3 and 12 (shared memory), no
 collective (Km 0), a window with no kernel; durations shifted by one comm
-must fail; its time at 7b's population shape.  It also holds the backward kernels (flash attention's dQ, dK, dV
+must fail; its time at 7b's population shape.  Then the draw form
+(``c3_window_draw``: the noise drawn in the kernel from the JAX package's
+threefry2x32 streams) against its plain version (``core/prng.py`` draws,
+then the plain scan) at rtol 1e-12, reporting the elements not bit-equal:
+one 256-node fleet, groups of 3 and 12, the population, spikes on; a
+sample key off by one and the iteration's datum off by one must fail;
+``jax_normal`` against its plain version; the draw form's time at the
+population beside the generator path it replaced (per-sample
+generator draws, elementwise passes, the read form) in turns, and its
+operations bound (INT32 and FP64, counted from the run's data).  It also holds the backward kernels (flash attention's dQ, dK, dV
 from the forward's log-sum-exp, "wgmma" for bf16 D 64/128 and "simt" for
 the rest; RMSNorm's dx, dw; the grouped GEMM's dgrad and wgrad, "wgmma"
 for bf16 that TMA can read and "simt" for the rest) against their plain
@@ -171,20 +186,22 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
-from repro_torch.core import torch_engine  # noqa: E402
+from repro_torch.core import prng, torch_engine  # noqa: E402
 from repro_torch.core.backends import ClusterSimBackend  # noqa: E402
 from repro_torch.core.c3sim import (C3Sim, SimConfig,  # noqa: E402
                                     vector_iteration, workload_arrays)
 from repro_torch.core.cluster import ClusterConfig, ClusterSim  # noqa: E402
 from repro_torch.core.manager import (FleetManagerConfig,  # noqa: E402
                                       ManagerConfig, run_fleet_closed_loop)
-from repro_torch.core.thermal import PRESETS  # noqa: E402
+from repro_torch.core.thermal import PRESETS, ChurnEvent, ChurnModel  # noqa: E402
 from repro_torch.core.workload import (CommKernel, CompKernel,  # noqa: E402
                                        Workload, fsdp_llm_iteration)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.c3_window import ops as c3_ops  # noqa: E402
-from repro_torch.kernels.c3_window.kernel import c3_window_scan  # noqa: E402
-from repro_torch.kernels.c3_window.ref import c3_window_ref  # noqa: E402
+from repro_torch.kernels.c3_window.kernel import (  # noqa: E402
+    c3_window_draw_scan, c3_window_scan, jax_normal_draw)
+from repro_torch.kernels.c3_window.ref import (  # noqa: E402
+    c3_window_draw_ref, c3_window_ref, jax_normal_ref)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd  # noqa: E402
@@ -223,6 +240,24 @@ from repro_torch.train.train_loop import (LitSiliconHook, Trainer,  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.float64: 34e12}     # float64 outside the tensor cores
+# 32-bit integer operations (adds, logic, funnel shifts): 64 INT32 lanes an
+# SM against the 128 FP32 lanes behind 67 TFLOP/s (an FMA two operations),
+# Hopper architecture white paper: a quarter of the fp32 rate
+INT32_OPS_PER_S = 67e12 / 4
+# the draw form's operations, counted from csrc/c3_window.cu: a threefry2x32
+# call is 2 + 20 rounds x 3 (add, funnel-shift rotate, xor) + 5 key
+# injections x 2 32-bit operations (a key's derivation: fold_in, split), a
+# draw 4 more to form the counter and the 52-bit mantissa; float64, an FMA
+# two: the normal's uniform 3, erfinv ~70 (its log ~26 and a ~20-term
+# polynomial), the product by sqrt(2) 1; a factor exp(sigma z) 1 + exp ~26
+# more; a [0, 1) uniform 1; the scan's work per lane and kernel: 2
+# products, 2 divisions of ~9 each, 4 sums and differences
+KEY_INT_OPS = 72
+DRAW_INT_OPS = KEY_INT_OPS + 4
+NORMAL_FP64_FLOPS = 3 + 70 + 1
+FACTOR_FP64_FLOPS = NORMAL_FP64_FLOPS + 1 + 26
+UNIFORM_FP64_FLOPS = 1
+SCAN_FP64_FLOPS = 2 + 18 + 4
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # kernel path vs plain path, 2-layer full-width bf16 prefill logits: the two
 # paths round to bf16 at the same points but sum in another order, so values
@@ -1504,13 +1539,203 @@ def c3_window_checks(g) -> dict:
         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {CARD}")
     del one, inp
     torch.cuda.empty_cache()
-    return dict(name="c3_window", route="cuda",
+    read = dict(name="c3_window", route="cuda",
                 source="src/repro_torch/kernels/csrc/c3_window.cu",
                 replaces="none: XLA jit of _iteration_scan, "
                          "src/repro/core/jax_engine.py:198",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, sample_ms=one_ms,
                 shape=f"{S} samples x {N} nodes x 8 lanes, Kc {Kc}, summary")
+    return [read, *c3_window_draw_checks(g)]
+
+
+def draw_inputs(g, wl, G: int, S: int, N: int, spike: bool = True,
+                datum: int = 31) -> tuple:
+    """The draw form's inputs at the fleet's settings: S samples of N nodes
+    of G lanes, each lane at a clock drawn in [f_min, f_max], raw keys from
+    the generator, SimConfig's sigma and comm base, spikes at p 0.2 (the
+    tests' setting) and SimConfig's multiplier."""
+    dev, f64 = str(g.device), torch.float64
+    plan = torch_engine.window_plan(wl)
+    A = workload_arrays(wl)
+    p, sim = PRESETS[FLEET["preset"]], SimConfig(**FLEET["sim"])
+    L, B = S * N * G, S * N
+    f = p.f_min + (p.f_max - p.f_min) * torch.rand(L, generator=g, device=dev,
+                                                   dtype=f64)
+    rate_f = p.peak_gflops * sim.gemm_eff * (f / p.f_max)
+    rm = torch.full((B,), p.hbm_gbps, dtype=f64, device=dev)
+    keys = torch.randint(-2 ** 31, 2 ** 31, (S, 2), generator=g, device=dev,
+                         dtype=torch.int32)
+    base = (torch.as_tensor(A["cbytes"], device=dev)
+            / (sim.comm_gbps * 1e9)).expand(S, -1).contiguous()
+
+    def per_sample(v):
+        return torch.full((S,), float(v), dtype=f64, device=dev)
+    return (torch_engine._table(plan, dev), rate_f,
+            rate_f / (1.0 + sim.kappa_comp), rm, rm / (1.0 + sim.kappa_mem),
+            keys, datum, per_sample(sim.noise), base, per_sample(0.2),
+            per_sample(sim.comm_spike_mult), spike,
+            torch.as_tensor(A["gflop"], device=dev),
+            torch.as_tensor(A["gbyte"], device=dev))
+
+
+def bit_diff(got, want) -> int:
+    """How many elements of a kernel's outputs are not bit-equal to the
+    plain version's."""
+    return sum(int((a != b).sum()) for a, b in zip(got, want))
+
+
+def c3_window_draw_checks(g) -> list:
+    """The draw form (run_fleet_scan's: the noise drawn in the kernel from
+    JAX's streams) against its plain version, c3_window_draw_ref: one
+    256-node fleet, groups of 3 and 12 (shared memory), spikes on, then the
+    population; two planted controls (a sample key off by one, the
+    iteration's datum off by one) must fail.  Then jax_normal against
+    jax_normal_ref at 7b's tp shape.  Times at the population's shape
+    (CUDA events, L2 flushed), beside the path it replaced at the same
+    shape: the read form fed by per-sample torch.Generator draws (normal_, uniform_)
+    and the elementwise passes that made the noise (mul_, exp_, where), in
+    turns in this call."""
+    log("c3_window draw form (kernel vs plain, float64):")
+    wl = fleet_workload()
+    S, N = FLEET["pop_samples"], FLEET["pop_nodes"]
+    cases = [("256 nodes x 8", 8, 1, N, "shuffle"),
+             ("groups of 3", 3, 2, 50, "shared"),
+             ("groups of 12", 12, 2, 20, "shared"),
+             (f"population {S} x {N} x 8", 8, S, N, "shuffle")]
+    err = 0.0
+    for name, G, s, n, want_path in cases:
+        inp = draw_inputs(g, wl, G, s, n)
+        got, path = took(c3_window_draw_scan,
+                         lambda: c3_window_draw_scan(*inp, G))
+        want = c3_window_draw_ref(*inp, G)
+        rel, e = scan_err(got, want)
+        err = max(err, e)
+        ok = rel <= SCAN_RTOL and path == want_path
+        log(f"  {name} [{path}]: largest relative error {rel:.3e} (rtol "
+            f"{SCAN_RTOL:g}), {bit_diff(got, want)} of "
+            f"{sum(x.numel() for x in got)} elements not bit-equal "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"c3_window draw {name}: {rel} off the "
+                                 f"plain version, or took {path}")
+        if s == 1:
+            keys = inp[5].clone()
+            keys[0, 1] += 1
+            for what, bad in (("a sample key off by one",
+                               inp[:5] + (keys,) + inp[6:]),
+                              ("the iteration's datum off by one",
+                               inp[:6] + (inp[6] + 1,) + inp[7:])):
+                rel, _ = scan_err(c3_window_draw_scan(*bad, G), want)
+                log(f"  control, {what}: {rel:.3e} "
+                    f"{'fails, as it must' if rel > SCAN_RTOL else 'PASSES'}")
+                if not rel > SCAN_RTOL:
+                    raise AssertionError(f"c3_window draw: the control with "
+                                         f"{what} passed")
+    pop = inp
+    table, L, B, Kc = pop[0], pop[1].numel(), pop[3].numel(), pop[12].numel()
+    Km = pop[8].shape[1]
+    P = L // S
+    # the replaced path at this shape: a generator a sample, its draws,
+    # the elementwise passes, then the read form
+    gens = [torch.Generator(device="cuda").manual_seed(k) for k in range(S)]
+    noise = torch.empty((S, Kc, P), dtype=torch.float64, device="cuda")
+    dur = torch.empty((S, N, Km), dtype=torch.float64, device="cuda")
+    spikes = torch.empty((2, S, N, Km), dtype=torch.float64, device="cuda")
+    sig, base, sp, mult = (pop[7].view(S, 1, 1), pop[8][:, None, :],
+                           pop[9].view(S, 1, 1), pop[10].view(S, 1, 1))
+
+    def old_path():
+        for k, gen in enumerate(gens):
+            noise[k].normal_(generator=gen)
+            dur[k].normal_(generator=gen)
+            spikes[0, k].uniform_(generator=gen)
+            spikes[1, k].uniform_(generator=gen)
+        noise.mul_(sig).exp_()
+        d = base * torch.exp(sig * dur)
+        d = d * torch.where(spikes[0] < sp, mult * (1.0 + spikes[1]), 1.0)
+        return c3_window_scan(table, *pop[1:5], noise, pop[12], pop[13],
+                              d.reshape(S * N, Km), 8, False)
+    times = {"draw": [], "old": []}
+    for arm in ("draw", "old", "old", "draw"):
+        fn = ((lambda: c3_window_draw_scan(*pop, 8)) if arm == "draw"
+              else old_path)
+        times[arm].append(cuda_ms(fn, iters=10))
+    ms, old_ms = (sum(v) / 2 for v in (times["draw"], times["old"]))
+    plain_ms = cuda_ms(lambda: c3_window_draw_ref(*pop, 8), iters=2, warmup=1)
+    # what the function needs, whichever thread does it: an iteration's keys
+    # once a sample (fold_in; split to k1, k2, k3; under spikes k3 to ks,
+    # ku), a factor a lane and kernel, a group's Km durations (a normal, a
+    # uniform under spikes, and a second where this run's spike fires)
+    spike = pop[11]
+    k = prng.split(prng.fold_in(pop[5], pop[6]), 3)
+    fires = int((prng.uniform(prng.split(k[:, 2], 2)[:, 0], (N, Km))
+                 < pop[9].view(S, 1, 1)).sum()) if spike else 0
+    comm_draws = B * Km * (2 if spike else 1) + fires
+    int_ops = (S * (6 if spike else 3) * KEY_INT_OPS
+               + (L * Kc + comm_draws) * DRAW_INT_OPS)
+    fp64 = (L * Kc * (FACTOR_FP64_FLOPS + SCAN_FP64_FLOPS)
+            + B * Km * (FACTOR_FP64_FLOPS + 1)       # times the base
+            + (comm_draws - B * Km) * UNIFORM_FP64_FLOPS
+            + fires * 3)                             # mult (1 + u) times d
+    nbytes = (8 * 2 * L + 8 * 2 * B + 8 * 2 * S + 8 * 4 * S + 8 * S * Km
+              + 4 * table.numel() + 8 * 2 * Kc + 8 * (B + L))
+    t_int = int_ops / INT32_OPS_PER_S * 1e3
+    b_ms, b_by = bound(nbytes, fp64, torch.float64)
+    if t_int > b_ms:
+        b_ms, b_by = t_int, "operations"
+    log(f"  population {S} x {N} x 8, summary: draw form "
+        f"{', '.join(f'{t:.4f}' for t in times['draw'])} ms, the replaced "
+        f"generator draws + elementwise + read form "
+        f"{', '.join(f'{t:.4f}' for t in times['old'])} ms (in turns "
+        f"draw, old, old, draw); plain {plain_ms:.2f} ms; bound "
+        f"{b_ms * 1e3:.1f} us ({b_by}: INT32 {int_ops / 1e9:.4f} G ops "
+        f"{t_int * 1e3:.1f} us, float64 {fp64 / 1e9:.4f} GFLOP "
+        f"{fp64 / PEAK_FLOPS[torch.float64] * 1e6:.1f} us, "
+        f"{nbytes / 1e6:.1f} MB {nbytes / HBM_BYTES_PER_S * 1e6:.1f} us; "
+        f"{fires} of {B * Km} comms spiked); {CARD}")
+    del noise, dur, spikes, pop, inp
+    torch.cuda.empty_cache()
+    draw = dict(name="c3_window_draw", route="cuda",
+                source="src/repro_torch/kernels/csrc/c3_window.cu",
+                replaces="none: XLA jit of _iteration_scan and of "
+                         "draw_noise's jax.random draws, "
+                         "src/repro/core/jax_engine.py:198,573",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, old_path_ms=old_ms,
+                shape=f"{S} samples x {N} nodes x 8 lanes, Kc {Kc}, Km "
+                      f"{Km}, spikes on, summary")
+    # jax_normal at 7b's tp shape: 16 samples x 256 nodes x 16 syncs
+    Sn, M = FLEET["topo_samples"], N * 16
+    keys = torch.randint(-2 ** 31, 2 ** 31, (Sn, 2), generator=g,
+                         device="cuda", dtype=torch.int32)
+    got = jax_normal_draw(keys, 2 ** 20 + 5, M)
+    want = jax_normal_ref(keys, 2 ** 20 + 5, M)
+    rel, e = scan_err((got,), (want,))
+    ok = rel <= SCAN_RTOL
+    log(f"jax_normal (kernel vs plain, float64), {Sn} keys x {M}: largest "
+        f"relative error {rel:.3e} (rtol {SCAN_RTOL:g}), "
+        f"{bit_diff((got,), (want,))} of {got.numel()} not bit-equal "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"jax_normal: {rel} off the plain version")
+    n_ms = cuda_ms(lambda: jax_normal_draw(keys, 2 ** 20 + 5, M))
+    n_plain = cuda_ms(lambda: jax_normal_ref(keys, 2 ** 20 + 5, M), iters=5)
+    n_bytes = 8 * Sn * M + 8 * Sn
+    n_int = Sn * KEY_INT_OPS + Sn * M * DRAW_INT_OPS     # fold_in a key
+    n_ms_b, n_by = bound(n_bytes, Sn * M * NORMAL_FP64_FLOPS, torch.float64)
+    if n_int / INT32_OPS_PER_S * 1e3 > n_ms_b:
+        n_ms_b, n_by = n_int / INT32_OPS_PER_S * 1e3, "operations"
+    log(f"  jax_normal: kernel {n_ms:.4f} ms, plain {n_plain:.3f} ms, bound "
+        f"{n_ms_b * 1e3:.2f} us ({n_by}); {CARD}")
+    normal = dict(name="jax_normal", route="cuda",
+                  source="src/repro_torch/kernels/csrc/c3_window.cu",
+                  replaces="none: XLA jit of jax.random.normal, the TP "
+                           "jitter, src/repro/core/jax_engine.py:586",
+                  max_abs_err=e, ms=n_ms, plain_ms=n_plain, bound_ms=n_ms_b,
+                  bound_by=n_by, library_ms=None,
+                  shape=f"{Sn} keys x {M} normals")
+    return [draw, normal]
 
 
 def fleet(engine: str, n: int, seed: int = FLEET["seed"]) -> ClusterSim:
@@ -1526,19 +1751,25 @@ def fleet(engine: str, n: int, seed: int = FLEET["seed"]) -> ClusterSim:
     return c
 
 
-def counted_run(runs: dict, name: str, expected: int, call):
-    """call() with the window scan's counts set to 0 just before and read
-    just after, as run ``name``; the launches must equal ``expected``."""
-    _build.reset_counts(c3_window_scan)
+FLEET_KERNELS = (c3_window_scan, c3_window_draw_scan, jax_normal_draw)
+
+
+def counted_run(runs: dict, name: str, expected: dict, call):
+    """call() with the fleet kernels' counts set to 0 just before and read
+    just after, as run ``name``; each wrapper's launches must equal
+    ``expected[its name]`` (0 where it is not named)."""
+    for fn in FLEET_KERNELS:
+        _build.reset_counts(fn)
     t0 = time.perf_counter()
     out = call()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    runs[name] = ({"c3_window_scan": c3_window_scan.launches},
-                  {"c3_window_scan": dict(c3_window_scan.launches_by_path)})
-    if c3_window_scan.launches != expected:
-        raise AssertionError(f"{name}: {c3_window_scan.launches} window-scan "
-                             f"launches, expected {expected}")
+    runs[name] = ({fn.__name__: fn.launches for fn in FLEET_KERNELS},
+                  {fn.__name__: dict(fn.launches_by_path)
+                   for fn in FLEET_KERNELS})
+    got = {k: v for k, v in runs[name][0].items() if v}
+    if got != {k: v for k, v in expected.items() if v}:
+        raise AssertionError(f"{name}: launches {got}, expected {expected}")
     return out, secs
 
 
@@ -1581,6 +1812,60 @@ def scan_population(spec_kw: dict, samples: int, nodes: int, iters: int,
     return spec, {k: np.stack([a[k] for a in arrays]) for k in arrays[0]}
 
 
+# the six (topology, collect, samples) cases the CPU tests hold the port's
+# scan to the JAX package's in (tests/test_torch_engine.py SCAN_CASES)
+SCAN_CASES = (("dp", "full", 2), ("dp", "summary", 0), ("pp", "full", 0),
+              ("pp", "summary", 2), ("tp", "full", 2), ("tp", "summary", 2))
+
+
+def scan_on_card_against_cpu() -> None:
+    """run_fleet_scan on the card against the same call with device "cpu"
+    (prng.py and the plain scan: the path the CPU tests hold to the JAX
+    package's scan at rtol 1e-9) in SCAN_CASES, at the tests' settings: a
+    2-layer llama3.1-8b iteration, 4 nodes of mixed presets with churn on
+    node 0, noise 0.008, spikes at p 0.2, the default TP jitter, 24
+    iterations; every series within ENGINE_RTOL / ENGINE_ATOL, the slowest
+    and straggler nodes equal."""
+    wl = fsdp_llm_iteration(get_config(FLEET["arch"]).replace(n_layers=2),
+                            batch=2, seq=4096, n_shards=8)
+    sim = SimConfig(seed=1, comm_gbps=40.0, noise=0.008, comm_spike_p=0.2)
+    for topo, collect, samples in SCAN_CASES:
+        cc = ClusterConfig(
+            n_nodes=4, straggler_boost=FLEET["boost"], topology=topo,
+            node_presets=["mi300x", "mi300x-air", "mi300x", "v5e"],
+            churn={0: ChurnModel(drift_rate=0.3,
+                                 events=[ChurnEvent(0.0, 3, 1.4)])})
+        spec = torch_engine.fleet_scan_spec(wl, sim, cc, 24, collect=collect)
+        arrays = [torch_engine.build_fleet_arrays(
+            wl, PRESETS["mi300x"], sim, cc, FLEET["cap_w"], 5 + k, rng_seed=k)
+            for k in range(max(samples, 1))]
+        arrays = ({k: np.stack([a[k] for a in arrays]) for k in arrays[0]}
+                  if samples else arrays[0])
+        got = torch_engine.run_fleet_scan(spec, arrays)
+        want = torch_engine.run_fleet_scan(spec, arrays, device="cpu")
+        worst, close, nodes = 0.0, True, True
+        for key in want:
+            a, b = got[key], want[key]
+            if key in ("slowest_node", "straggler_node"):
+                nodes &= bool(np.array_equal(a, b))
+                continue
+            close &= bool(np.allclose(a, b, rtol=ENGINE_RTOL,
+                                      atol=ENGINE_ATOL))
+            worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(
+                np.abs(b), 1e-300))))
+        log(f"7b: the scan on the card against the CPU's (the path held to "
+            f"JAX's), {topo} {collect}, {max(samples, 1)} x 4 nodes, noise "
+            f"0.008, spikes p 0.2: largest relative difference {worst:.3e} "
+            f"(rtol {ENGINE_RTOL:g}, atol {ENGINE_ATOL:g}) "
+            f"{'ok' if close else 'FAILED'}, "
+            f"{sum(int((got[k] != want[k]).sum()) for k in want)} values not "
+            f"bit-equal; slowest and straggler nodes "
+            f"{'equal' if nodes else 'DIFFER'}")
+        if not (close and nodes):
+            raise AssertionError(f"7b {topo} {collect}: the scan on the card "
+                                 f"is off the CPU's")
+
+
 def tail_means(t_fleet, power, n: int = 30) -> dict:
     t, p = np.asarray(t_fleet)[-n:], np.asarray(power)[-n:]
     return {"t_fleet": float(t.mean()), "throughput": float((1 / t).mean()),
@@ -1590,13 +1875,14 @@ def tail_means(t_fleet, power, n: int = 30) -> dict:
 def fleet_sim(args) -> tuple:
     """Phase 7, the fleet simulator at the cluster scenarios' settings.
     Returns {run: (launch counts, counts by path)} of the window scan, and
-    the seconds of 7b's population."""
+    the seconds of 7b's population's first and second (warm) call."""
     runs: dict = {}
     n4, iters = FLEET["nodes"], FLEET["iterations"]
     # 7a: the engine against the vector engine, then the managed fleet
     ct, cv = fleet("torch", n4), fleet("vector", n4)
     steps = FLEET["engine_steps"]
-    tt, t_secs = counted_run(runs, f"7a dp {n4} nodes", steps,
+    tt, t_secs = counted_run(runs, f"7a dp {n4} nodes",
+                             {"c3_window_scan": steps},
                              lambda: [ct.step() for _ in range(steps)])
     t0 = time.perf_counter()
     tv = [cv.step() for _ in range(steps)]
@@ -1621,8 +1907,8 @@ def fleet_sim(args) -> tuple:
                                          FleetManagerConfig(**knobs), iters,
                                          tune_after=FLEET["tune_after"])
         if engine == "torch":
-            mgr, secs = counted_run(runs, f"7a managed {n4} nodes", iters,
-                                    loop)
+            mgr, secs = counted_run(runs, f"7a managed {n4} nodes",
+                                    {"c3_window_scan": iters}, loop)
         else:
             t0 = time.perf_counter()
             mgr = loop()
@@ -1649,44 +1935,32 @@ def fleet_sim(args) -> tuple:
     T = spec.warmup + iters
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    draws = {"c3_window_draw_scan": T}
     out, pop_secs = counted_run(
-        runs, f"7b dp {S} x {N} nodes", T,
+        runs, f"7b dp {S} x {N} nodes", draws,
         lambda: torch_engine.run_fleet_scan(spec, arrays))
     peak = torch.cuda.max_memory_allocated() / 1e9
     finite = all(np.isfinite(v).all() for v in out.values())
     shapes = (out["t_fleet"].shape == (S, iters)
               and out["temp"].shape == (S, N, FLEET["devices"]))
     tm = tail_means(out["t_fleet"].mean(0), out["fleet_power"].mean(0))
+    out2, warm_secs = counted_run(
+        runs, f"7b dp {S} x {N} nodes, again", draws,
+        lambda: torch_engine.run_fleet_scan(spec, arrays))
+    same = all(np.array_equal(out[k], out2[k]) for k in out)
     log(f"7b: {S} samples x {N} nodes x {FLEET['devices']} lanes "
         f"({S * N * FLEET['devices']:,} lanes), {spec.warmup} + {iters} "
-        f"iterations, summary: {pop_secs:.3f} s on the card "
-        f"({pop_secs / T * 1e3:.2f} ms an iteration of the population, "
-        f"{pop_secs / T / S * 1e3:.3f} a fleet), {T} launches, peak "
-        f"{peak:.2f} GB; arrays built in "
+        f"iterations, summary: first call {pop_secs:.3f} s, second (warm) "
+        f"{warm_secs:.3f} s on the card ({warm_secs / T * 1e3:.2f} ms an "
+        f"iteration of the population, {warm_secs / T / S * 1e3:.3f} a "
+        f"fleet), {T} launches a call, peak {peak:.2f} GB; arrays built in "
         f"{build_s:.2f} s on the host; t_fleet tail mean {tm['t_fleet']:.6f} s, "
         f"fleet power {tm['power'] / 1e3:.1f} kW; finite {finite}, shapes "
-        f"{'ok' if shapes else 'WRONG'}; {CARD}")
-    if not (finite and shapes):
-        raise AssertionError("7b: the population's output is not finite or "
-                             "not of the expected shape")
-    # the scan's draws alone: each sample's kernel and comm noise from its
-    # own generator, T iterations, as run_fleet_scan draws them
-    gens = [torch.Generator(device="cuda").manual_seed(k) for k in range(S)]
-    noise = torch.empty((S, spec.plan.n_comp, N * FLEET["devices"]),
-                        dtype=torch.float64, device="cuda")
-    dur = torch.empty((S, N, spec.plan.n_comm), dtype=torch.float64,
-                      device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(T):
-        for k, gen in enumerate(gens):
-            noise[k].normal_(generator=gen)
-            dur[k].normal_(generator=gen)
-    torch.cuda.synchronize()
-    draws_s = time.perf_counter() - t0
-    log(f"7b: the {S} samples' generator draws alone, {T} iterations: "
-        f"{draws_s:.3f} s of the population's {pop_secs:.3f} s")
-    del noise, dur
+        f"{'ok' if shapes else 'WRONG'}, the two calls equal {same}; {CARD}")
+    if not (finite and shapes and same):
+        raise AssertionError("7b: the population's output is not finite, not "
+                             "of the expected shape, or not reproduced")
+    host_profile(S, N)
     wl = fleet_workload()
     sims = [C3Sim(wl, PRESETS[FLEET["preset"]],
                   SimConfig(**dict(FLEET["sim"], seed=FLEET["sim"]["seed"]
@@ -1698,27 +1972,36 @@ def fleet_sim(args) -> tuple:
     for nz in noises:
         tv = vector_iteration(sims, freqs, nz)
     v_ms = (time.perf_counter() - t0) / 3 * 1e3
-    tt, secs = counted_run(runs, f"7b torch_iteration {N} nodes", 3, lambda: [
+    tt, secs = counted_run(runs, f"7b torch_iteration {N} nodes",
+                           {"c3_window_scan": 3}, lambda: [
         torch_engine.torch_iteration(sims, freqs, nz) for nz in noises])
     worst = close_traces(tt[-1], tv, "7b torch_iteration")
     log(f"7b: one {N}-node iteration from the numpy noise: vector engine "
         f"{v_ms:.2f} ms on the host, torch_iteration {secs / 3 * 1e3:.2f} ms "
         f"(the trace to and from the card included; rtol {worst:.2e}); the "
-        f"scan {pop_secs / T / S * 1e3:.3f} ms a fleet-iteration in the "
+        f"scan {warm_secs / T / S * 1e3:.3f} ms a fleet-iteration in the "
         f"population")
-    small = scan_population(dict(warmup=2), 2, N, 3, "full")
-    got = torch_engine.run_fleet_scan(*small)
-    with mock.patch.object(c3_ops, "c3_window", c3_window_ref):
-        want = torch_engine.run_fleet_scan(*small)
-    worst = max(float(np.max(np.abs(got[k] - want[k]) / np.maximum(
-        np.abs(want[k]), 1e-300))) for k in got)
-    log(f"7b: the scan's kernel path against its plain path, same generator "
-        f"seeds (2 x {N} nodes, 2 + 3 iterations, full): largest relative "
-        f"difference {worst:.3e} (rtol {ENGINE_RTOL:g})")
-    if not worst <= ENGINE_RTOL:
-        raise AssertionError("7b: the scan's kernel path is off its plain path")
+    for topo in ("dp", "pp", "tp"):
+        small = scan_population(dict(warmup=2, spike=True), 2, N, 3, "full",
+                                topo)
+        small[1]["comm_spike_p"] = np.full(2, 0.2)
+        got = torch_engine.run_fleet_scan(*small)
+        with mock.patch.object(c3_ops, "c3_window_draw", c3_window_draw_ref), \
+                mock.patch.object(c3_ops, "jax_normal", jax_normal_ref):
+            want = torch_engine.run_fleet_scan(*small)
+        worst = max(float(np.max(np.abs(got[k] - want[k]) / np.maximum(
+            np.abs(want[k]), 1e-300))) for k in got)
+        log(f"7b: the scan's kernel path against its plain path, {topo}, "
+            f"the same keys (2 x {N} nodes, 2 + 3 iterations, spikes on, "
+            f"full): largest relative difference {worst:.3e}, "
+            f"{sum(int((got[k] != want[k]).sum()) for k in got)} values not "
+            f"bit-equal (rtol {SCAN_RTOL:g})")
+        if not worst <= SCAN_RTOL:
+            raise AssertionError(f"7b {topo}: the scan's kernel path is off "
+                                 f"its plain path")
+    scan_on_card_against_cpu()
     spec1, arrays1 = scan_population({}, 0, N, iters, "full")
-    out, secs = counted_run(runs, f"7b dp {N} nodes full", T,
+    out, secs = counted_run(runs, f"7b dp {N} nodes full", draws,
                             lambda: torch_engine.run_fleet_scan(spec1, arrays1))
     ok = (out["t_local"].shape == (iters, N) and out["lead"].shape == (iters, N)
           and all(np.isfinite(v).all() for v in out.values())
@@ -1732,7 +2015,9 @@ def fleet_sim(args) -> tuple:
         spec_t, arrays_t = scan_population({}, FLEET["topo_samples"], N, iters,
                                            "summary", topo)
         out, secs = counted_run(
-            runs, f"7b {topo} {FLEET['topo_samples']} x {N} nodes", T,
+            runs, f"7b {topo} {FLEET['topo_samples']} x {N} nodes",
+            {"c3_window_draw_scan": T,
+             "jax_normal_draw": iters if topo == "tp" else 0},
             lambda: torch_engine.run_fleet_scan(spec_t, arrays_t))
         ok = all(np.isfinite(v).all() for v in out.values())
         log(f"7b: {topo}, {FLEET['topo_samples']} samples x {N} nodes: "
@@ -1744,7 +2029,8 @@ def fleet_sim(args) -> tuple:
     # 7c: the statistics, the scan against stepping ClusterSim per sample
     k3, it3 = FLEET["stat_samples"], FLEET["stat_iterations"]
     spec3, arrays3 = scan_population({}, k3, n4, it3, "summary")
-    out, _ = counted_run(runs, f"7c dp {k3} x {n4} nodes", spec3.warmup + it3,
+    out, _ = counted_run(runs, f"7c dp {k3} x {n4} nodes",
+                         {"c3_window_draw_scan": spec3.warmup + it3},
                          lambda: torch_engine.run_fleet_scan(spec3, arrays3))
     worst = 0.0
     for k in range(k3):
@@ -1761,7 +2047,46 @@ def fleet_sim(args) -> tuple:
         f"difference {worst:.3e} (limit {STAT_REL:g})")
     if not worst <= STAT_REL:
         raise AssertionError("7c: the scan's statistics are off ClusterSim's")
-    return runs, pop_secs
+    return runs, (pop_secs, warm_secs)
+
+
+def host_profile(S: int, N: int, iters: int = 8) -> None:
+    """Where the host's time goes in an iteration of the population's scan:
+    cProfile (host only, no CUDA tracing) over a scan of 2 + ``iters``
+    iterations, self time per iteration by function."""
+    import cProfile
+    import pstats
+    spec, arrays = scan_population(dict(warmup=2), S, N, iters, "summary")
+    torch_engine.run_fleet_scan(spec, arrays)
+    prof = cProfile.Profile()
+    prof.enable()
+    torch_engine.run_fleet_scan(spec, arrays)
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof)
+    n = spec.warmup + iters
+    total = sum(v[2] for v in st.stats.values())
+    rows = sorted(((v[2], v[1], f"{Path(k[0]).name}:{k[1]}({k[2]})")
+                   for k, v in st.stats.items()), reverse=True)
+    log(f"7b: host profile of the scan ({S} x {N} nodes, cProfile), "
+        f"{total / n * 1e3:.3f} ms of self time an iteration; the largest:")
+    for secs, calls, where in rows[:8]:
+        log(f"  {secs / n * 1e3:8.3f} ms  x{calls / n:<6.1f} {where[:90]}")
+
+
+def launches_per_iteration(S: int, N: int) -> float:
+    """CUDA launches an iteration of the population's scan (torch.profiler,
+    kernels and copies): the difference between scans of 2 + 6 and 2 + 2
+    iterations, over 4."""
+    counts = []
+    for iters in (2, 6):
+        spec, arrays = scan_population(dict(warmup=2), S, N, iters, "summary")
+        torch_engine.run_fleet_scan(spec, arrays)
+        ev = profiled_kernels(lambda: (
+            torch_engine.run_fleet_scan(spec, arrays),
+            torch.cuda.synchronize()))
+        counts.append(sum(e.count for e in ev))
+    return (counts[1] - counts[0]) / 4
 
 
 # --------------------------------------------------------------------------- #
@@ -3023,17 +3348,29 @@ def device_times(g, rows: dict, rounds: int = 3) -> None:
                         for t in ms) + f"; {CARD}")
 
 
-def fleet_profile(pop_secs: float) -> None:
+def fleet_profile(walls: tuple) -> None:
     """Phase 7b's population once more under torch.profiler (after the
-    host-clock phases): the device's busy share of its unprofiled time and
-    the device time by kernel."""
+    host-clock phases): the device's busy share of its unprofiled warm
+    call's time, and of its first call's, and the device time by kernel."""
+    first, warm = walls
     spec, arrays = scan_population({}, FLEET["pop_samples"],
                                    FLEET["pop_nodes"], FLEET["iterations"],
                                    "summary")
-    prof, _ = device_profile(
+    per = {S: launches_per_iteration(S, FLEET["pop_nodes"])
+           for S in (FLEET["topo_samples"], FLEET["pop_samples"])}
+    log(f"7b: launches an iteration of the scan (torch.profiler), "
+        + ", ".join(f"S {k}: {v:g}" for k, v in per.items())
+        + f" {'equal' if len(set(per.values())) == 1 else 'DIFFER'}")
+    if len(set(per.values())) != 1:
+        raise AssertionError("7b: the scan's launches an iteration depend on "
+                             "the number of samples")
+    prof, busy = device_profile(
         f"7b population ({FLEET['pop_samples']} x {FLEET['pop_nodes']} "
-        f"nodes)", pop_secs * 1e3,
+        f"nodes, over the warm call)", warm * 1e3,
         lambda: torch_engine.run_fleet_scan(spec, arrays), top=8)
+    log(f"  over the first call's {first * 1e3:.2f} ms: busy "
+        f"{100 * busy / (first * 1e3):.1f}%, idle "
+        f"{100 - 100 * busy / (first * 1e3):.1f}%")
     from torch.autograd import DeviceType
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
@@ -3077,10 +3414,10 @@ def main(argv=None) -> int:
     costs = host_costs(g)
     for row in rows:
         row.update(costs.get(row["name"], {}))
-    rows.append(c3_window_checks(g))
+    rows.extend(c3_window_checks(g))
     # phase 7 runs here, before any profiler session (which would slow the
     # host clocks it reads)
-    fleet_runs, pop_secs = fleet_sim(args)
+    fleet_runs, pop_walls = fleet_sim(args)
     torch.cuda.empty_cache()
     by_run = {"llama3.1-8b": serve(args, "llama3.1-8b")}
     kernel_vs_plain(args)
@@ -3110,7 +3447,7 @@ def main(argv=None) -> int:
     by_name = {row["name"]: row for row in rows}
     device_times(g, by_name)
     backward_device_times(g, by_name)
-    fleet_profile(pop_secs)
+    fleet_profile(pop_walls)
     # each row's kernel wrapper, and the runs whose launches it counts (the
     # windowed rows: those of the runs whose every flash launch is windowed)
     counted = {"flash_attention_window": (fa_ops.flash_attention_fwd,
@@ -3120,7 +3457,10 @@ def main(argv=None) -> int:
     for row, fn in zip(rows, KERNELS):
         counted[row["name"]] = (fn, tuple(by_run))
     by_run.update(fleet_runs)
-    counted["c3_window"] = (c3_window_scan, tuple(fleet_runs))
+    for row, fn in (("c3_window", c3_window_scan),
+                    ("c3_window_draw", c3_window_draw_scan),
+                    ("jax_normal", jax_normal_draw)):
+        counted[row] = (fn, tuple(fleet_runs))
     for row in rows:
         fn, names = counted[row["name"]]
         name = fn.__name__

@@ -16,12 +16,14 @@ Two programs, both over the CUDA window-scan kernel
     cooling churn), every per-node quantity a tensor on the device with a
     leading sample axis.  The static thermal lottery comes from
     :func:`build_fleet_arrays` (``ThermalModel``'s numpy streams, exactly);
-    the per-iteration noise is drawn on the device from one
-    ``torch.Generator`` a sample, seeded from the sample's ``key``.  The
-    JAX package draws it from ``jax.random`` streams, which torch cannot
-    replay, so the two scans are *statistically* equivalent, as each is to
-    ``ClusterSim``; with the noise at 0, no spikes and no TP jitter they
-    are deterministic and agree to float rounding.
+    the per-iteration noise is the JAX package's: ``jax.random``'s
+    threefry2x32 streams are counter-based, so the window scan's draw form
+    draws each lane's noise from the sample's ``key`` in the kernel, in
+    JAX's layout (:mod:`repro_torch.core.prng` is the plain replay), and
+    the port's scan reproduces the JAX package's for the same arrays, up
+    to float rounding (``erfinv`` and ``exp`` differ in the last bits
+    between XLA and torch on the CPU).  Both are *statistically* equivalent
+    to ``ClusterSim``, whose noise is numpy's.
 
 ``WindowPlan``, ``window_plan``, ``_step_table``, ``FleetScanSpec``,
 ``fleet_scan_spec`` and ``build_fleet_arrays`` are copies of the JAX
@@ -285,9 +287,9 @@ def build_fleet_arrays(workload, preset, sim_cfg, cluster_cfg,
     ``m_coef``) reproduce ``ThermalModel``'s numpy streams exactly (node
     ``n`` draws from ``default_rng(seed + 7919 * n)`` through an actual
     `ThermalModel`), so a scan shares ClusterSim's static physics; only the
-    per-iteration noise streams differ (a device generator keyed on
-    ``rng_seed``).  For a population build one dict per sample and stack
-    every entry along a new leading axis."""
+    per-iteration noise streams differ (JAX's threefry2x32 streams from
+    ``key``, drawn from ``rng_seed``).  For a population build one dict per
+    sample and stack every entry along a new leading axis."""
     from repro_torch.core.c3sim import workload_arrays
     from repro_torch.core.thermal import PRESETS, ThermalModel
     from repro_torch.core.topology import make_topology
@@ -367,18 +369,19 @@ def build_fleet_arrays(workload, preset, sim_cfg, cluster_cfg,
 
 
 def _fleet_scan(spec: FleetScanSpec, a: Dict[str, torch.Tensor],
-                gens: List[torch.Generator]) -> Dict[str, torch.Tensor]:
+                keys: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The scan: warmup (uncoupled, TDP caps) then the coupled loop, for S
     samples at once.  ``a`` holds the `build_fleet_arrays` entries as
     tensors with a leading sample axis: per-node fields (S, N), per-lane
-    (S, N, G), scalars (S,).  Each sample draws from its own generator, in
-    a fixed order: per iteration the kernel noise, the comm noise, the
-    spikes' two uniforms (if any) and, in the main loop under tp, the TP
-    jitter."""
+    (S, N, G), scalars (S,); ``keys`` (S, 2) int32 the samples' raw keys.
+    Sample s draws what ``_fleet_scan_core`` draws from its key: iteration
+    i's noise from ``fold_in(key, i)`` in the warmup and ``fold_in(key,
+    warmup + 1 + i)`` in the main loop (the draw form of the window scan
+    draws it), the TP jitter from ``fold_in(key, 2**20 + i)``
+    (``jax_normal``)."""
     plan = spec.plan
     N, G = spec.n_nodes, spec.n_devices
-    Kc, Km = plan.n_comp, plan.n_comm
-    S = len(gens)
+    S = keys.shape[0]
     dev = a["r_th"].device
     if not all(torch.equal(a[k], a[k][:1].expand_as(a[k]))
                for k in ("gflop", "gbyte")):
@@ -393,38 +396,20 @@ def _fleet_scan(spec: FleetScanSpec, a: Dict[str, torch.Tensor],
     def per_node(k):                    # (S, N) -> (S, N, 1)
         return a[k][:, :, None]
 
-    noise_c = torch.empty((S, Kc, N * G), dtype=F64, device=dev)
-    dur = torch.empty((S, N, Km), dtype=F64, device=dev)
-    spikes = (torch.empty((2, S, N, Km), dtype=F64, device=dev)
-              if spec.spike else None)
-    base = a["cbytes"][:, None, :] / (per_sample("comm_gbps") * 1e9)
+    base = (a["cbytes"] / (a["comm_gbps"][:, None] * 1e9)).contiguous()
+    sigma, spike_p, spike_mult = (a[k].contiguous() for k in (
+        "noise", "comm_spike_p", "comm_spike_mult"))
 
-    def draw_noise():
-        for s, g in enumerate(gens):
-            noise_c[s].normal_(generator=g)
-            dur[s].normal_(generator=g)
-            if spikes is not None:
-                spikes[0, s].uniform_(generator=g)
-                spikes[1, s].uniform_(generator=g)
-        noise_c.mul_(per_sample("noise")).exp_()
-        d = base * torch.exp(per_sample("noise") * dur)
-        if spikes is not None:
-            hit = spikes[0] < per_sample("comm_spike_p")
-            mult = per_sample("comm_spike_mult") * (1.0 + spikes[1])
-            d = d * torch.where(hit, mult, 1.0)
-        return d
-
-    def run_iteration(freq):
-        dur_comm = draw_noise()
+    def run_iteration(freq, datum):
         rate_f = (per_node("peak_gflops") * per_sample("gemm_eff")
                   * freq / per_node("f_max"))
         rate_f_s = rate_f / (1.0 + per_sample("kappa_comp"))
         rm = a["hbm_gbps"]
         rm_s = rm / (1.0 + a["kappa_mem"][:, None])
-        t_iter, util = c3_ops.c3_window(
+        t_iter, util = c3_ops.c3_window_draw(
             table, rate_f.reshape(-1), rate_f_s.reshape(-1), rm.reshape(-1),
-            rm_s.reshape(-1), noise_c, gflop, gbyte,
-            dur_comm.reshape(S * N, Km), G, emit=False)
+            rm_s.reshape(-1), keys, datum, sigma, base, spike_p, spike_mult,
+            spec.spike, gflop, gbyte, G)
         return t_iter.view(S, N), util.view(S, N, G)
 
     def m_eff(temp):
@@ -442,7 +427,7 @@ def _fleet_scan(spec: FleetScanSpec, a: Dict[str, torch.Tensor],
                         dim=2)
         return a["r_th"] * drift * ev
 
-    def topology_step(t_local):
+    def topology_step(t_local, i):
         if spec.topology == "dp":
             t_max = t_local.amax(1)
             return t_max + a["comm_const"], t_max[:, None] - t_local
@@ -451,10 +436,8 @@ def _fleet_scan(spec: FleetScanSpec, a: Dict[str, torch.Tensor],
             t_fleet = (tau.sum(1) + (spec.microbatches - 1) * tau.amax(1)
                        + a["comm_const"])
             return t_fleet, t_fleet[:, None] - t_local
-        w = torch.empty((S, N, spec.tp_syncs), dtype=F64, device=dev)
-        for s, g in enumerate(gens):
-            w[s].normal_(generator=g)
-        w = torch.exp(w * per_sample("tp_jitter"))
+        w = c3_ops.jax_normal(keys, 2 ** 20 + i, N * spec.tp_syncs)
+        w = torch.exp(w.view(S, N, spec.tp_syncs) * per_sample("tp_jitter"))
         w = w / w.sum(2, keepdim=True)
         seg = t_local[:, :, None] * w
         seg_max = seg.amax(1)                       # (S, K)
@@ -486,16 +469,16 @@ def _fleet_scan(spec: FleetScanSpec, a: Dict[str, torch.Tensor],
     temp = per_node("t_amb") + 20.0 + zeros
     freq = per_node("f_max") + zeros
     t_sim = torch.zeros((S, N), dtype=F64, device=dev)
-    for _ in range(spec.warmup):
-        t_local, util = run_iteration(freq)
+    for i in range(spec.warmup):
+        t_local, util = run_iteration(freq, i)
         temp, freq, _, t_sim = commit(temp, freq, a["tdp_caps"], t_sim,
                                       util, t_local)
     t_sim = torch.zeros((S, N), dtype=F64, device=dev)  # churn clock resets
 
     series: List[tuple] = []
-    for _ in range(spec.iterations):
-        t_local, util = run_iteration(freq)
-        t_fleet, lead = topology_step(t_local)
+    for i in range(spec.iterations):
+        t_local, util = run_iteration(freq, spec.warmup + 1 + i)
+        t_fleet, lead = topology_step(t_local, i)
         if spec.topology == "tp":       # active wait: hot inside collectives
             util_eff = (util * t_local[:, :, None]
                         + (t_fleet[:, None] - t_local)[:, :, None]
@@ -532,11 +515,11 @@ def run_fleet_scan(spec: FleetScanSpec, arrays: Dict[str, np.ndarray],
     dev = resolve_device(device)
     batched = np.ndim(arrays["r_th"]) == 3
     lead = (lambda x: x) if batched else (lambda x: x[None])
-    keys = lead(np.asarray(arrays["key"])).reshape(-1, 2)
-    gens = [torch.Generator(device=dev).manual_seed(
-        int(k0) << 32 | int(k1)) for k0, k1 in keys]
+    keys = np.ascontiguousarray(lead(np.asarray(arrays["key"], np.uint32))
+                                .reshape(-1, 2))
     a = {k: torch.as_tensor(lead(np.asarray(v)), device=dev)
          for k, v in arrays.items() if k != "key"}
-    out = _fleet_scan(spec, a, gens)
+    out = _fleet_scan(spec, a, torch.as_tensor(keys.view(np.int32),
+                                               device=dev))
     return {k: (v if batched else v[0]).cpu().numpy()
             for k, v in out.items()}

@@ -22,10 +22,17 @@ Inputs (all float64 but the table):
 Each arithmetic step keeps ``_iteration_scan``'s operations and their order,
 so the CUDA kernel (``csrc/c3_window.cu``), which rounds each operation on
 its own, gives the same bits.
+
+``c3_window_draw_ref`` is the plain version of the kernel's draw form: it
+draws the noise of ``_fleet_scan_core``'s ``draw_noise``
+(``repro/core/jax_engine.py:573-585``) from JAX's streams with
+``repro_torch.core.prng`` and runs ``c3_window_ref`` on it, in summary mode.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import prng
 
 KERNEL, COMM, PULL = 0, 1, 2     # step kinds of the table (jax_engine's)
 
@@ -102,3 +109,46 @@ def c3_window_ref(table: torch.Tensor, rate_f: torch.Tensor,
         return comp_start, comp_end, comp_ovl, comm_lstart, comm_gend, busy
     t_iter = torch.maximum(t.view(B, G).amax(1), prev_end)
     return t_iter, busy / torch.clamp_min(t_iter, 1e-12).repeat_interleave(G)
+
+
+def c3_window_draw_ref(table: torch.Tensor, rate_f: torch.Tensor,
+                       rate_f_s: torch.Tensor, rm: torch.Tensor,
+                       rm_s: torch.Tensor, keys: torch.Tensor, datum: int,
+                       sigma: torch.Tensor, base: torch.Tensor,
+                       spike_p: torch.Tensor, spike_mult: torch.Tensor,
+                       spike: bool, gflop: torch.Tensor, gbyte: torch.Tensor,
+                       G: int):
+    """One iteration of every group in summary mode, ``(t_iter, util)``,
+    with the noise JAX's fleet scan draws for sample s from
+    ``fold_in(keys[s], datum)``: split in k1, k2, k3; the kernel factors
+    exp(sigma z) of ``normal(k1, (N, G, Kc))``; the durations
+    base x exp(sigma z) of ``normal(k2, (N, Km))``, under ``spike`` times
+    mult (1 + u) where ``uniform(ks, (N, Km)) < p``, with ks, ku = split(k3)
+    and u = ``uniform(ku, (N, Km))``.
+
+    ``keys`` (S, 2) raw keys; ``sigma``, ``spike_p``, ``spike_mult`` (S,);
+    ``base`` (S, Km) the collectives' base durations; the other inputs as
+    ``c3_window_ref``'s, sample s holding lanes [s P, (s + 1) P), P = L / S,
+    of N = P / G nodes."""
+    S, L, Kc = keys.shape[0], rate_f.numel(), gflop.numel()
+    P, Km = L // S, base.shape[1]
+    N = P // G
+    k = prng.split(prng.fold_in(keys, datum), 3)
+    sig = sigma.view(S, 1, 1)
+    noise = torch.exp(sig * prng.normal(k[:, 0], (P, Kc)))    # (S, P, Kc)
+    dur = base.view(S, 1, Km) * torch.exp(sig * prng.normal(k[:, 1],
+                                                             (N, Km)))
+    if spike:
+        ks, ku = prng.split(k[:, 2], 2).unbind(1)
+        hit = prng.uniform(ks, (N, Km)) < spike_p.view(S, 1, 1)
+        mult = spike_mult.view(S, 1, 1) * (1.0 + prng.uniform(ku, (N, Km)))
+        dur = dur * torch.where(hit, mult, 1.0)
+    return c3_window_ref(table, rate_f, rate_f_s, rm, rm_s,
+                         noise.transpose(1, 2), gflop, gbyte,
+                         dur.reshape(S * N, Km), G, emit=False)
+
+
+def jax_normal_ref(keys: torch.Tensor, datum: int, M: int) -> torch.Tensor:
+    """(S, M) float64: ``jax.random.normal(fold_in(keys[s], datum), (M,))``,
+    the plain version of the ``jax_normal`` kernel."""
+    return prng.normal(prng.fold_in(keys, datum), (M,))

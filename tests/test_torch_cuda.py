@@ -1424,3 +1424,178 @@ def test_cluster_torch_engine_matches_vector_on_card(cuda, nodes):
     np.testing.assert_allclose([h["t_fleet"] for h in cs[0].history],
                                [h["t_fleet"] for h in cs[1].history],
                                rtol=1e-9)
+
+
+# the draw form (run_fleet_scan's): the noise drawn in the kernel from JAX's
+# threefry2x32 streams; the plain version draws it with repro_torch.core.prng
+# on the card, erfinv and exp from the same CUDA math library, so the two
+# should agree to the bit; never looser than 1e-12 relative
+def _draw_inputs(wl, G, S, N, spike, seed=0):
+    from repro_torch.core import torch_engine
+    from repro_torch.core.c3sim import workload_arrays
+    plan = torch_engine.window_plan(wl)
+    A = workload_arrays(wl)
+    rng = np.random.default_rng(seed)
+
+    def put(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64,
+                               device="cuda")
+    L = S * N * G
+    rate_f = put(rng.uniform(3e5, 6e5, L))
+    rm = put(np.full(S * N, 5300.0))
+    keys = torch.as_tensor(rng.integers(0, 2 ** 32, (S, 2)).astype(
+        np.uint32).view(np.int32), device="cuda")
+    base = put(np.tile(A["cbytes"] / 40e9, (S, 1)))
+    return (torch_engine._table(plan, "cuda"), rate_f, rate_f / 1.45, rm,
+            rm / 1.75, keys, 31, put(np.full(S, 0.008)), base,
+            put(np.full(S, 0.2)), put(np.full(S, 2.0)), spike,
+            put(A["gflop"]), put(A["gbyte"]))
+
+
+def _differing(got, want) -> int:
+    return sum(int((a != b).sum()) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spike", [True, False])
+@pytest.mark.parametrize("G,path", [(8, "shuffle"), (12, "shared")])
+def test_c3_window_draw_matches_plain(cuda, G, path, spike):
+    """The draw form against c3_window_draw_ref: 3 samples of 5 nodes,
+    groups of 8 (shuffles) and 12 (shared memory), spikes on and off."""
+    from repro_torch.kernels.c3_window.kernel import c3_window_draw_scan
+    from repro_torch.kernels.c3_window.ref import c3_window_draw_ref
+    inp = _draw_inputs(_fleet_workload(), G, 3, 5, spike)
+    got, took = _path(c3_window_draw_scan,
+                      lambda: c3_window_draw_scan(*inp, G))
+    assert took == path
+    want = c3_window_draw_ref(*inp, G)
+    _scan_close(got, want)
+    print(f"draw G {G} spike {spike}: {_differing(got, want)} elements "
+          f"not bit-equal")
+
+
+@pytest.mark.cuda
+def test_c3_window_draw_planted_keys_fail(cuda):
+    """A sample key off by one, or the iteration's datum off by one, moves
+    the draw form far off the plain version at the true inputs."""
+    from repro_torch.kernels.c3_window.kernel import c3_window_draw_scan
+    from repro_torch.kernels.c3_window.ref import c3_window_draw_ref
+    inp = _draw_inputs(_fleet_workload(), 8, 3, 5, True)
+    want = c3_window_draw_ref(*inp, 8)
+    keys = inp[5].clone()
+    keys[1, 1] += 1
+    for bad in (inp[:5] + (keys,) + inp[6:],
+                inp[:6] + (inp[6] + 1,) + inp[7:]):
+        with pytest.raises(AssertionError):
+            _scan_close(c3_window_draw_scan(*bad, 8), want)
+
+
+@pytest.mark.cuda
+def test_jax_normal_matches_plain(cuda):
+    from repro_torch.kernels.c3_window.kernel import jax_normal_draw
+    from repro_torch.kernels.c3_window.ref import jax_normal_ref
+    keys = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 2 ** 32, (5, 2)).astype(np.uint32).view(np.int32), device="cuda")
+    before = jax_normal_draw.launches
+    got = jax_normal_draw(keys, 2 ** 20 + 3, 4096)
+    assert jax_normal_draw.launches - before == 1
+    want = jax_normal_ref(keys, 2 ** 20 + 3, 4096)
+    _scan_close((got,), (want,))
+    print(f"jax_normal: {_differing((got,), (want,))} of {got.numel()} "
+          f"elements not bit-equal")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", ["dp", "pp", "tp"])
+def test_fleet_scan_on_card_equals_its_plain_path(cuda, topology):
+    """run_fleet_scan on the card (the draw form; jax_normal under tp)
+    against the same call with the dispatch patched to the plain versions:
+    every series within 1e-12, the slowest and straggler nodes equal, and
+    no launch of the read form."""
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.core import torch_engine
+    from repro_torch.core.c3sim import SimConfig
+    from repro_torch.core.cluster import ClusterConfig
+    from repro_torch.core.thermal import MI300X_PRESET
+    from repro_torch.core.workload import fsdp_llm_iteration
+    from repro_torch.kernels.c3_window import ops as c3_ops
+    from repro_torch.kernels.c3_window.kernel import (c3_window_draw_scan,
+                                                      c3_window_scan,
+                                                      jax_normal_draw)
+    from repro_torch.kernels.c3_window.ref import (c3_window_draw_ref,
+                                                   jax_normal_ref)
+    wl = fsdp_llm_iteration(get_config("llama3.1-8b").replace(n_layers=2),
+                            batch=2, seq=4096, n_shards=8)
+    sim = SimConfig(seed=1, comm_gbps=40.0, comm_spike_p=0.2)
+    cc = ClusterConfig(n_nodes=16, topology=topology)
+    spec = torch_engine.fleet_scan_spec(wl, sim, cc, 6, collect="summary")
+    arrays = [torch_engine.build_fleet_arrays(wl, MI300X_PRESET, sim, cc,
+                                              700.0, 5 + k, rng_seed=k)
+              for k in range(3)]
+    arrays = {k: np.stack([a[k] for a in arrays]) for k in arrays[0]}
+    counts = [(f, f.launches) for f in (c3_window_draw_scan, c3_window_scan,
+                                        jax_normal_draw)]
+    got = torch_engine.run_fleet_scan(spec, arrays)
+    torch.cuda.synchronize()
+    draws, reads, normals = (f.launches - n for f, n in counts)
+    assert (draws, reads) == (spec.warmup + 6, 0)
+    assert normals == (6 if topology == "tp" else 0)
+    with mock.patch.object(c3_ops, "c3_window_draw", c3_window_draw_ref), \
+            mock.patch.object(c3_ops, "jax_normal", jax_normal_ref):
+        want = torch_engine.run_fleet_scan(spec, arrays)
+    for key in want:
+        if key in ("slowest_node", "straggler_node"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        else:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-12,
+                                       atol=0.0, err_msg=key)
+
+
+# the six (topology, collect, samples) cases in which tests/test_torch_engine
+# holds the scan on the CPU to the JAX package's at rtol 1e-9
+SCAN_CASES = [("dp", "full", 2), ("dp", "summary", 0), ("pp", "full", 0),
+              ("pp", "summary", 2), ("tp", "full", 2), ("tp", "summary", 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology,collect,samples", SCAN_CASES)
+def test_fleet_scan_on_card_matches_cpu(cuda, topology, collect, samples):
+    """run_fleet_scan on the card against the same call on the CPU (the
+    path held to the JAX package's scan) at that test's settings: noise
+    0.008, spikes at p 0.2, the default TP jitter, 4 nodes of mixed presets
+    with churn.  The CPU's erfinv and exp are not CUDA's, so the draws may
+    differ in the last bits: every series within rtol 1e-9, atol 1e-12,
+    the slowest and straggler nodes equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import torch_engine
+    from repro_torch.core.c3sim import SimConfig
+    from repro_torch.core.cluster import ClusterConfig
+    from repro_torch.core.thermal import MI300X_PRESET, ChurnEvent, ChurnModel
+    from repro_torch.core.workload import fsdp_llm_iteration
+    wl = fsdp_llm_iteration(get_config("llama3.1-8b").replace(n_layers=2),
+                            batch=2, seq=4096, n_shards=8)
+    sim = SimConfig(seed=1, comm_gbps=40.0, noise=0.008, comm_spike_p=0.2)
+    cc = ClusterConfig(n_nodes=4, straggler_boost=1.28, topology=topology,
+                       node_presets=["mi300x", "mi300x-air", "mi300x", "v5e"],
+                       churn={0: ChurnModel(drift_rate=0.3, events=[
+                           ChurnEvent(0.0, 3, 1.4)])})
+    spec = torch_engine.fleet_scan_spec(wl, sim, cc, 24, collect=collect)
+    arrays = [torch_engine.build_fleet_arrays(wl, MI300X_PRESET, sim, cc,
+                                              700.0, 5 + k, rng_seed=k)
+              for k in range(max(samples, 1))]
+    arrays = ({k: np.stack([a[k] for a in arrays]) for k in arrays[0]}
+              if samples else arrays[0])
+    got = torch_engine.run_fleet_scan(spec, arrays)
+    want = torch_engine.run_fleet_scan(spec, arrays, device="cpu")
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].shape == want[key].shape, key
+        if key in ("slowest_node", "straggler_node"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        else:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-9,
+                                       atol=1e-12, err_msg=key)
+    print(f"scan {topology} {collect} {samples}, card vs CPU: "
+          f"{sum(int((got[k] != want[k]).sum()) for k in want)} values not "
+          f"bit-equal")

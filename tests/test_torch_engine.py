@@ -17,12 +17,17 @@ source as a module of its own with that one import pointed at
 Tolerances: rtol 1e-9, atol 1e-12 with equal NaN patterns, the JAX
 package's own for ``engine="jax"`` against the vector engine
 (tests/test_jax_engine.py:54-62: float64 sums in another order); the
-managed fleet's caps and history 1e-9; the deterministic fleet scans (noise
-0, no spikes, no TP jitter) 1e-9; at the default noise the tail means
-(last 30 iterations) of t_fleet, throughput and fleet power rel 5e-3, the
-JAX package's statistical limit (tests/test_jax_engine.py:115): the noise
-streams differ (torch generators, jax.random, numpy), the physics does
-not.
+managed fleet's caps and history 1e-9.  The fleet scans: the port draws
+the JAX package's own threefry2x32 streams (``repro_torch.core.prng``, the
+kernel's draw form), so with the noise, spikes and TP jitter on, as with
+them off, every series and the final state agree within rtol 1e-9, atol
+1e-12, and the slowest and straggler nodes are equal; the draws differ
+from JAX's only where torch's ``erfinv`` and ``exp`` round otherwise than
+XLA's (about 1e-14 relative in a noise factor).  Against stepping
+``ClusterSim``, whose noise is numpy's, the tail means (last 30
+iterations) of t_fleet, throughput and fleet power hold at rel 5e-3, the
+JAX package's statistical limit (tests/test_jax_engine.py:115): the
+streams differ, the physics does not.
 """
 import sys
 import types
@@ -443,7 +448,8 @@ def test_collector_raises_and_names_the_scenario_api():
 # --------------------------------------------------------------------------- #
 # the fleet scan
 # --------------------------------------------------------------------------- #
-def _scan_inputs(jax_engine, topo, collect, samples, noise, iterations):
+def _scan_inputs(jax_engine, topo, collect, samples, noise, iterations,
+                 spike_p=0.0):
     """Stacked (samples > 0) or single fleet arrays from both packages,
     with churn and mixed presets; noise 0 and no TP jitter make the run
     deterministic."""
@@ -451,8 +457,9 @@ def _scan_inputs(jax_engine, topo, collect, samples, noise, iterations):
     extra = dict(tp_jitter=0.0) if noise == 0.0 else {}
     jcc = JClusterConfig(**_cluster_kw(topo, True, True, True), **extra)
     tcc = ClusterConfig(**_cluster_kw(topo, True, True, False), **extra)
-    js = JSimConfig(seed=1, comm_gbps=40.0, noise=noise)
-    ts = SimConfig(seed=1, comm_gbps=40.0, noise=noise)
+    sim_kw = dict(seed=1, comm_gbps=40.0, noise=noise, comm_spike_p=spike_p)
+    js = JSimConfig(**sim_kw)
+    ts = SimConfig(**sim_kw)
     out = []
     for eng, wl, sim, cc, preset in ((jax_engine, jwl, js, jcc, J_MI300X),
                                      (torch_engine, twl, ts, tcc,
@@ -469,18 +476,11 @@ def _scan_inputs(jax_engine, topo, collect, samples, noise, iterations):
     return out
 
 
-@pytest.mark.parametrize("topo,collect,samples", [
-    ("dp", "full", 2), ("dp", "summary", 0), ("pp", "full", 0),
-    ("pp", "summary", 2), ("tp", "full", 2), ("tp", "summary", 2)])
-def test_fleet_scan_matches_jax_when_deterministic(jax_engine, topo, collect,
-                                                   samples):
-    """With the noise at 0, no spikes and no TP jitter both scans are
-    deterministic: every series and the final thermal state agree, with
-    churn, mixed presets, and with or without a leading sample axis."""
-    (jspec, ja), (tspec, ta) = _scan_inputs(jax_engine, topo, collect,
-                                            samples, 0.0, 24)
-    jo = jax_engine.run_fleet_scan(jspec, ja)
-    to = torch_engine.run_fleet_scan(tspec, ta, device="cpu")
+SCAN_CASES = [("dp", "full", 2), ("dp", "summary", 0), ("pp", "full", 0),
+              ("pp", "summary", 2), ("tp", "full", 2), ("tp", "summary", 2)]
+
+
+def _assert_scans_match(jo, to):
     assert set(jo) == set(to)
     for key in jo:
         a, b = np.asarray(jo[key]), to[key]
@@ -492,6 +492,33 @@ def test_fleet_scan_matches_jax_when_deterministic(jax_engine, topo, collect,
                                        err_msg=key)
 
 
+@pytest.mark.parametrize("topo,collect,samples", SCAN_CASES)
+def test_fleet_scan_matches_jax_when_deterministic(jax_engine, topo, collect,
+                                                   samples):
+    """With the noise at 0, no spikes and no TP jitter both scans are
+    deterministic: every series and the final thermal state agree, with
+    churn, mixed presets, and with or without a leading sample axis."""
+    (jspec, ja), (tspec, ta) = _scan_inputs(jax_engine, topo, collect,
+                                            samples, 0.0, 24)
+    _assert_scans_match(jax_engine.run_fleet_scan(jspec, ja),
+                        torch_engine.run_fleet_scan(tspec, ta, device="cpu"))
+
+
+@pytest.mark.parametrize("topo,collect,samples", SCAN_CASES)
+def test_fleet_scan_matches_jax_with_noise(jax_engine, topo, collect,
+                                           samples):
+    """With the noise on (0.008), comm spikes (p 0.2) and the default TP
+    jitter, the port's scan draws what the JAX package's draws from the
+    same keys: every series and the final state agree within rtol 1e-9,
+    the slowest and straggler nodes are equal."""
+    (jspec, ja), (tspec, ta) = _scan_inputs(jax_engine, topo, collect,
+                                            samples, 0.008, 24, spike_p=0.2)
+    assert jspec.spike and tspec.spike
+    assert (float(np.min(ja["tp_jitter"])) > 0.0) == (topo == "tp")
+    _assert_scans_match(jax_engine.run_fleet_scan(jspec, ja),
+                        torch_engine.run_fleet_scan(tspec, ta, device="cpu"))
+
+
 def _tail_means(t_fleet, power, n=30):
     t, p = np.asarray(t_fleet)[-n:], np.asarray(power)[-n:]
     return {"t_fleet": t.mean(), "throughput": (1.0 / t).mean(),
@@ -499,10 +526,11 @@ def _tail_means(t_fleet, power, n=30):
 
 
 def test_fleet_scan_statistics_match_jax_and_cluster_stepping(jax_engine):
-    """At the default noise the streams differ (torch generators,
-    jax.random, numpy) but the physics does not: per sample, the tail means
-    of t_fleet, throughput and fleet power of the port's scan agree with
-    the JAX package's scan and with stepping the port's ClusterSim."""
+    """At the default noise the scans' streams (jax.random's, replayed by
+    the port) differ from ClusterSim's (numpy's) but the physics does not:
+    per sample, the tail means of t_fleet, throughput and fleet power of
+    the port's scan agree with the JAX package's scan and with stepping the
+    port's ClusterSim."""
     samples, iters = 3, 40
     (jspec, ja), (tspec, ta) = _scan_inputs(jax_engine, "dp", "summary",
                                             samples, 0.008, iters)
@@ -528,7 +556,7 @@ def test_fleet_scan_statistics_match_jax_and_cluster_stepping(jax_engine):
 
 
 def test_fleet_scan_population_equals_its_samples_run_alone():
-    """Each sample draws from its own generator: a sample's run does not
+    """Each sample draws from its own key's streams: a sample's run does not
     depend on the population around it."""
     jwl, twl = _workloads()
     cc = ClusterConfig(n_nodes=3, topology="tp")
